@@ -13,8 +13,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    T 1024, 12 heads, head_dim 64, causal, bf16) and at the variants
    (full attention, ragged T 1000, window 256, rectangular with
    ``q_offset``, lse with an lse cotangent, small and ragged shapes);
-   then ``flash_attention``'s gradient through autograd on strided views
-   of a fused qkv tensor, against dense f32 attention.
+   then ``flash_attention``'s output and gradient through autograd on
+   strided views of a fused qkv tensor at the training shape, against
+   dense f32 attention; and a mask that drops keys of the last rows must
+   fail the same limits.
 3. ``times``: each kernel's median time at the training shape beside
    its plain version's, the library call that computes the same
    function (``scaled_dot_product_attention``, a yardstick only: the
@@ -31,13 +33,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
 Then it prints the card line, one ``{"kernels": [...]}`` line, and as
 its last line ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the package beside it, it exits non-zero before any result.
-``--phases`` runs a subset (to bring up a new kernel); a subset prints
-no result lines.
 """
 
 from __future__ import annotations
 
-import argparse
 import json
 import math
 import os
@@ -49,13 +48,26 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("card", "kernels", "times", "train")
 
-# bf16 outputs: the kernel rounds P and dS to bf16 before the second
-# product (as the TPU kernel does) while the plain version keeps f32,
-# and both round the result once more to bf16 (2^-8 relative).
-BF16_TOL = 2e-2  # max |kernel - plain| <= BF16_TOL * max(1, max |plain|)
-LSE_TOL = 1e-3   # lse is f32 in both: exp/log approximations, sum order
+# bf16 outputs, compared element by element:
+#   |kernel - plain| <= RTOL * |plain| + ATOL * max(row_rms, rms / 16)
+# where row_rms is the plain value's rms over the heads and head dims of
+# the element's sequence position and rms is over the whole tensor, and
+#   rms(kernel - plain) <= RMS_TOL * rms(plain).
+# RTOL is one bf16 ulp (2^-7 of the value): both sides round once to
+# bf16, so f32 results a hair apart can land an ulp apart. ATOL covers
+# elements near zero, where the kernel's bf16 rounding of P and dS
+# before the second product (the TPU kernel does the same; the plain
+# version keeps f32) does not shrink with the element; per position,
+# because |O| falls as 1/sqrt(position) under a causal mask, with a
+# floor for positions whose exact value is ~0 (dq of a causal row 0).
+RTOL = 2.0 ** -7
+ATOL = 2.0 ** -4
+RMS_TOL = 2.0 ** -7
+LSE_TOL = 1e-5   # lse is f32 in both: exp/log approximations, sum order
 # The first loss with the kernels against the dense attention path:
-# both run the model in bf16; attention's rounding differs.
+# both run the model in bf16; attention's rounding differs. At init
+# (weights of std 0.02) attention barely moves the loss, so this gate
+# checks the path end to end; the parity limits hold attention itself.
 LOSS_TOL = 2e-2
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3.
@@ -134,9 +146,34 @@ def _case_inputs(seed, b, tq, tk, h, d):
 
 
 def _err(got, ref):
-    diff = (got.float() - ref.float()).abs().max().item()
-    scale = max(1.0, ref.float().abs().max().item())
-    return diff, diff / scale
+    """Errors of ``got`` against ``ref``, both [B, T, ...]: (max abs
+    error, worst element's share of its limit, rms error over rms of the
+    plain value); the limits hold when the shares are at most 1 and
+    RMS_TOL."""
+    import torch
+
+    got, ref = got.float(), ref.float()
+    diff = (got - ref).abs()
+    rms = ref.square().mean().sqrt().item()
+    row_rms = ref.square().mean(
+        dim=tuple(range(2, ref.dim())), keepdim=True
+    ).sqrt()
+    limit = RTOL * ref.abs() + ATOL * row_rms.clamp(min=rms / 16)
+    worst = torch.where(diff == 0, 0.0, diff / limit).max().item()
+    rms_err = diff.square().mean().sqrt().item()
+    return diff.max().item(), worst, rms_err / rms if rms_err else 0.0
+
+
+def _within(err) -> bool:
+    _, worst, rms_share = err
+    return worst <= 1.0 and rms_share <= RMS_TOL
+
+
+def _fmt(name, err) -> str:
+    return (
+        f"{name} abs {err[0]:.3e} limit-share {err[1]:.3f} "
+        f"rms {err[2]:.3e}"
+    )
 
 
 # name, tq, tk, causal, window, q_offset, scale (None: 1/8 folded into q
@@ -152,6 +189,14 @@ CASES = [
     ("window1_t200", 200, 200, True, 1, 0, 0.125, True),
     ("rect_full_tq192_tk100", 192, 100, False, None, 0, 0.125, False),
 ]
+
+
+def _limits() -> str:
+    return (
+        f"limits: |err| <= {RTOL:.3g}|plain| + {ATOL:.3g} "
+        "max(row_rms, rms/16)(plain), "
+        f"rms(err) <= {RMS_TOL:.3g} rms(plain), lse {LSE_TOL}"
+    )
 
 
 def phase_kernels(res: dict) -> None:
@@ -174,8 +219,8 @@ def phase_kernels(res: dict) -> None:
         )
         o, lse = fa._fwd_cuda(q, k, v, causal, scale, window, q_off)
         torch.cuda.synchronize()
-        o_abs, o_rel = _err(o, o_ref)
-        lse_abs, _ = _err(lse, lse_ref)
+        o_err = _err(o, o_ref)
+        lse_abs = (lse - lse_ref).abs().max().item()
         delta = (do.float() * o_ref.float()).sum(-1).transpose(1, 2)
         if with_glse:
             delta = delta - g_lse
@@ -188,57 +233,88 @@ def phase_kernels(res: dict) -> None:
         torch.cuda.synchronize()
         g_errs = [_err(g, r) for g, r in zip(grads, grads_ref)]
         log(
-            f"# parity {name} (B={b} Tq={tq} Tk={tk}): "
-            f"o abs {o_abs:.3e} rel {o_rel:.3e} | lse abs {lse_abs:.3e} | "
-            + " ".join(
-                f"d{n} abs {a:.3e} rel {r:.3e}"
-                for n, (a, r) in zip("qkv", g_errs)
-            )
-            + f" | tol {BF16_TOL} (lse {LSE_TOL})"
+            f"# parity {name} (B={b} Tq={tq} Tk={tk}): {_fmt('o', o_err)} | "
+            f"lse abs {lse_abs:.3e} | "
+            + " | ".join(_fmt(f"d{n}", e) for n, e in zip("qkv", g_errs))
         )
         check(
-            o_rel <= BF16_TOL and lse_abs <= LSE_TOL,
+            _within(o_err) and lse_abs <= LSE_TOL,
             f"forward kernel disagrees with its plain version on {name}",
         )
         check(
-            all(r <= BF16_TOL for _, r in g_errs),
+            all(_within(e) for e in g_errs),
             f"backward kernels disagree with the plain version on {name}",
         )
         if name == "main_causal":
-            worst["fwd"] = max(o_abs, lse_abs)
-            worst["bwd"] = max(a for a, _ in g_errs)
+            worst["fwd"] = max(o_err[0], lse_abs)
+            worst["bwd"] = max(e[0] for e in g_errs)
+            wrong_mask_fails(q, k, v, do, o_ref, lse_ref, delta, grads_ref)
+    log(f"# {_limits()}")
     res["max_abs_err"] = worst
     wrapper_autograd()
 
 
+def wrong_mask_fails(q, k, v, do, o_ref, lse_ref, delta, grads_ref) -> None:
+    """The limits must see a mask error: the kernels run with a window
+    of T - 64, so each of the last 64 rows drops its first 1..64 keys,
+    and are held to the plain causal result."""
+    import torch
+
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    window = q.shape[1] - 64
+    o, _ = fa._fwd_cuda(q, k, v, True, 1.0, window, 0)
+    grads = fa._bwd_cuda(q, k, v, lse_ref, do, delta, True, 1.0, window, 0)
+    torch.cuda.synchronize()
+    o_err = _err(o, o_ref)
+    g_errs = [_err(g, r) for g, r in zip(grads, grads_ref)]
+    log(
+        f"# wrong mask (window T-64, must fail): {_fmt('o', o_err)} | "
+        + " | ".join(_fmt(f"d{n}", e) for n, e in zip("qkv", g_errs))
+    )
+    check(
+        not _within(o_err) and not all(_within(e) for e in g_errs),
+        "the parity limits pass kernels run with a wrong mask",
+    )
+
+
 def wrapper_autograd() -> None:
-    """The model's call end to end on the card: ``flash_attention`` on
-    strided q/k/v views of one fused qkv tensor (scale folded into q,
-    delta and the backward in the autograd Function) against autograd
-    through dense f32 attention on the same bf16 values."""
+    """The model's call end to end on the card at the training shape:
+    ``flash_attention`` on strided q/k/v views of one fused qkv tensor
+    (scale folded into q, delta and the backward in the autograd
+    Function) against autograd through dense f32 attention on the same
+    bf16 values; the output and each of dq, dk, dv are held to the
+    limits."""
     import torch
 
     from dlrover_tpu_torch.models.gpt import _default_attention
     from dlrover_tpu_torch.ops.flash_attention import flash_attention
 
-    b, t, h, d = 2, MAIN["t"], MAIN["h"], MAIN["d"]
+    b, t, h, d = MAIN["b"], MAIN["t"], MAIN["h"], MAIN["d"]
     gen = torch.Generator(device="cuda").manual_seed(11)
     qkv = _randn(gen, (b, t, 3 * h * d), torch.bfloat16).requires_grad_(True)
     w = torch.randn((b, t, h, d), generator=gen, device="cuda")
-    grads = []
+    outs, grads = [], []
     for attn, cast in ((flash_attention, None), (_default_attention, "f32")):
         x = qkv.float() if cast else qkv
         q, k, v = (y.reshape(b, t, h, d) for y in x.split(h * d, dim=-1))
         out = attn(q, k, v, causal=True)
         (g,) = torch.autograd.grad((out.float() * w).sum(), qkv)
-        grads.append(g)
+        outs.append(out.detach())
+        grads.append(g.split(h * d, dim=-1))
     torch.cuda.synchronize()
-    abs_err, rel_err = _err(grads[0], grads[1])
+    errs = [_err(outs[0], outs[1])] + [
+        _err(g, r) for g, r in zip(grads[0], grads[1])
+    ]
     log(
-        f"# parity wrapper_autograd (qkv views, B={b} T={t}): d(qkv) abs "
-        f"{abs_err:.3e} rel {rel_err:.3e} | tol {BF16_TOL}"
+        f"# parity wrapper_autograd (qkv views, B={b} T={t}): "
+        + " | ".join(_fmt(n, e) for n, e in zip(("o", "dq", "dk", "dv"), errs))
     )
-    check(rel_err <= BF16_TOL, "flash_attention's gradient disagrees")
+    check(
+        all(_within(e) for e in errs),
+        "flash_attention's output or gradient disagrees with dense f32 "
+        "attention",
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -423,18 +499,7 @@ def kernels_line(res: dict) -> dict:
     return {"kernels": entries}
 
 
-def main(argv=None) -> int:
-    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument(
-        "--phases", default=",".join(PHASES),
-        help="comma-separated subset of " + ",".join(PHASES),
-    )
-    args = p.parse_args(argv)
-    phases = [x for x in args.phases.split(",") if x]
-    unknown = set(phases) - set(PHASES)
-    if unknown:
-        p.error(f"unknown phases {sorted(unknown)}")
-
+def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -451,14 +516,10 @@ def main(argv=None) -> int:
     res: dict = {}
     t_all = time.perf_counter()
     for name in PHASES:
-        if name in phases:
-            t0 = time.perf_counter()
-            globals()[f"phase_{name}"](res)
-            log(f"# phase {name} passed in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        globals()[f"phase_{name}"](res)
+        log(f"# phase {name} passed in {time.perf_counter() - t0:.1f} s")
     log(f"# total {time.perf_counter() - t_all:.1f} s")
-    if phases != list(PHASES):
-        log("# subset of phases: no result line")
-        return 0
     print(res["card"])
     print(json.dumps(kernels_line(res)))
     print(json.dumps({

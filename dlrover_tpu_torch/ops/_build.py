@@ -9,8 +9,7 @@ stream from ``torch.cuda.current_stream().cuda_stream``.
 Libraries go to ``build/dlrover_tpu_torch/<hash>/`` at the root of the
 checkout (listed in ``.gitignore``), keyed by a hash of the sources and
 flags, so an edited kernel is rebuilt and an unchanged one is reused.
-``DLROVER_TPU_TORCH_BUILD_DIR`` moves that directory. A failed build
-raises with the compiler's output; nothing falls back.
+A failed build raises with the compiler's output; nothing falls back.
 """
 
 from __future__ import annotations
@@ -40,9 +39,6 @@ _loaded: Dict[str, ctypes.CDLL] = {}
 
 
 def build_dir() -> Path:
-    env = os.getenv("DLROVER_TPU_TORCH_BUILD_DIR")
-    if env:
-        return Path(env)
     return CSRC.parent.parent / "build" / "dlrover_tpu_torch"
 
 
@@ -82,9 +78,10 @@ def _start(name: str):
     lib = _lib_path(name)
     if lib.exists():
         return None, lib, None
+    compiler = nvcc()
     lib.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc()] + NVCC_FLAGS + ["-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [compiler] + NVCC_FLAGS + ["-o", str(tmp), str(CSRC / f"{name}.cu")]
     logger.info("building %s: %s", name, " ".join(cmd))
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True

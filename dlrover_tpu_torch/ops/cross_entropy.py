@@ -19,14 +19,16 @@ import torch
 
 
 @contextlib.contextmanager
-def _exact_tf32(x: torch.Tensor):
+def _exact_tf32(*xs: torch.Tensor):
     """TF32 products of operands that are exactly representable in
     bf16/f16 are exact (TF32 keeps 10 mantissa bits, bf16 7, f16 10),
     so an f32 matmul of upcast low-precision operands may run on the
     TF32 tensor cores and still equal the low-precision product
     accumulated in f32 -- the JAX ``preferred_element_type=f32`` dot.
-    Off the card, or for f32 operands, nothing changes."""
-    if not (x.is_cuda and x.dtype in (torch.bfloat16, torch.float16)):
+    Off the card, or when any operand is f32, nothing changes."""
+    if not all(
+        x.is_cuda and x.dtype in (torch.bfloat16, torch.float16) for x in xs
+    ):
         yield
         return
     prev = torch.backends.cuda.matmul.allow_tf32
@@ -40,7 +42,7 @@ def _exact_tf32(x: torch.Tensor):
 def dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` with f32 products and f32 output for operands of any
     float dtype (JAX's ``preferred_element_type=jnp.float32``)."""
-    with _exact_tf32(a):
+    with _exact_tf32(a, b):
         return a.float() @ b.float()
 
 
@@ -52,14 +54,17 @@ class _FusedCrossEntropy(torch.autograd.Function):
             raise ValueError(
                 f"N={n} tokens must divide into num_chunks={num_chunks}"
             )
-        wte_t = wte.t()
+        wte_t = wte.float().t()  # upcast once, not once per chunk
         lse, gold, saved = [], [], []
-        for x_c, t_c in zip(x.chunk(num_chunks), targets.chunk(num_chunks)):
-            logits = dot_f32(x_c, wte_t)
-            lse.append(torch.logsumexp(logits, dim=-1))
-            gold.append(logits.gather(1, t_c[:, None])[:, 0])
-            if save_logits:
-                saved.append(logits.to(x.dtype))
+        with _exact_tf32(x, wte):
+            for x_c, t_c in zip(
+                x.chunk(num_chunks), targets.chunk(num_chunks)
+            ):
+                logits = x_c.float() @ wte_t
+                lse.append(torch.logsumexp(logits, dim=-1))
+                gold.append(logits.gather(1, t_c[:, None])[:, 0])
+                if save_logits:
+                    saved.append(logits.to(x.dtype))
         lse = torch.stack(lse)
         loss = (lse - torch.stack(gold)).mean()
         ctx.save_for_backward(x, wte, targets, lse.reshape(-1), *saved)
@@ -70,22 +75,23 @@ class _FusedCrossEntropy(torch.autograd.Function):
     def backward(ctx, g):
         x, wte, targets, lse, *saved = ctx.saved_tensors
         n, num_chunks = x.shape[0], ctx.num_chunks
-        wte_t = wte.t()
+        wte_t = None if saved else wte.float().t()  # upcast once
         dx = torch.empty_like(x)
         dwte = torch.zeros(wte.shape, dtype=torch.float32, device=wte.device)
-        for i, (x_c, t_c, lse_c, dx_c) in enumerate(zip(
-            x.chunk(num_chunks), targets.chunk(num_chunks),
-            lse.chunk(num_chunks), dx.chunk(num_chunks),
-        )):
-            if saved:
-                logits = saved[i].float()
-            else:
-                logits = dot_f32(x_c, wte_t)
-            dlogits = torch.exp(logits - lse_c[:, None])
-            dlogits[torch.arange(len(t_c), device=t_c.device), t_c] -= 1.0
-            dlogits = (dlogits * (g / n)).to(x.dtype)  # bf16 cotangent
-            torch.matmul(dlogits, wte, out=dx_c)
-            dwte += dot_f32(dlogits.t(), x_c)
+        with _exact_tf32(x, wte):
+            for i, (x_c, t_c, lse_c, dx_c) in enumerate(zip(
+                x.chunk(num_chunks), targets.chunk(num_chunks),
+                lse.chunk(num_chunks), dx.chunk(num_chunks),
+            )):
+                if saved:
+                    logits = saved[i].float()
+                else:
+                    logits = x_c.float() @ wte_t
+                dlogits = torch.exp(logits - lse_c[:, None])
+                dlogits[torch.arange(len(t_c), device=t_c.device), t_c] -= 1.0
+                dlogits = (dlogits * (g / n)).to(x.dtype)  # bf16 cotangent
+                torch.matmul(dlogits, wte, out=dx_c)
+                dwte += dlogits.t().float() @ x_c.float()
         return dx, dwte.to(wte.dtype), None, None, None
 
 

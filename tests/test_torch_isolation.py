@@ -137,10 +137,11 @@ def test_chip_smoke_fails_fast_without_gpu(no_gpu, tmp_path):
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
-    monkeypatch.setenv("DLROVER_TPU_TORCH_BUILD_DIR", str(tmp_path / "b"))
+    monkeypatch.setattr(_build, "build_dir", lambda: tmp_path / "b")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build(["flash_attention"])
-    assert _build.build_dir() == tmp_path / "b"
+    # nvcc is looked up before the build directory is made
+    assert not (tmp_path / "b").exists()
     lib = _build._lib_path("flash_attention")
     assert lib.parent.parent == tmp_path / "b" and lib.name.endswith(".so")
 
