@@ -43,8 +43,10 @@ def canonical(policy: Any) -> str:
 
 def wire_block(inner_block: Callable, policy: Any,
                attn_fn: Callable) -> Callable:
-    """The block callable ``(x, layer_params) -> x`` with the named
-    policy applied; ``inner_block(x, layer_params, attn_fn)``."""
+    """The block callable ``(x, layer_params) -> out`` with the named
+    policy applied; ``inner_block(x, layer_params, attn_fn)``. ``out``
+    is whatever the inner block returns: ``x`` for GPT, the tuple
+    ``(x, aux)`` for Llama, which ``checkpoint`` carries as it is."""
     name = canonical(policy)
     if name not in PORTED:
         raise NotImplementedError(

@@ -34,7 +34,8 @@
 //   no padded copy of the inputs.
 // * Inputs are read in the JAX layout [B, T, H, D] through strides (the
 //   q/k/v views of the fused qkv projection need no copy); each row of a
-//   64-row tile is one 128-byte run, loaded 16 bytes a thread.
+//   64-row tile is one run of 2 * head_dim bytes, loaded 16 bytes a
+//   thread.
 // * The TPU backward accumulates dq for the whole sequence in one VMEM
 //   scratch across an ordered grid. Hopper's blocks run in no order, so
 //   the backward is two deterministic kernels: dkdv (one block per key
@@ -42,6 +43,13 @@
 //   per query tile, looping over the key tiles it sees). Both recompute
 //   P from the forward's lse. No atomics, so results are bitwise
 //   repeatable. delta = rowsum(dO * O) - g_lse is computed outside.
+// * head_dim 64 and 128 are template instances of the same kernels.
+//   The tiles live in dynamic shared memory (at head_dim 128 the
+//   forward's q, k and v tiles take 52 KB, past the 48 KB static limit).
+//   The dk/dv kernel keeps its two [16 keys x head_dim] f32 accumulators
+//   per warp in registers (128 a thread at head_dim 128) and reads its
+//   K and V operand fragments from the resident shared-memory tiles
+//   instead of holding them in registers too.
 //
 // Plain C interface (no PyTorch headers), loaded with ctypes. Every
 // entry point launches on the given stream, allocates nothing and
@@ -56,18 +64,23 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kHeadDim = 64;
 constexpr int kBlockQ = 64;   // query rows per block: 4 warps x 16
 constexpr int kBlockK = 64;   // keys per tile
 constexpr int kThreads = 128;
-// Shared-memory row pitch in elements: 144 bytes keeps rows 16-byte
-// aligned and puts the 8 rows x 4 words of a fragment read in 32
-// different banks.
-constexpr int kLd = kHeadDim + 8;
-constexpr int kKSteps = kHeadDim / 16;  // k16 steps over head_dim
-constexpr int kDTiles = kHeadDim / 8;   // n8 tiles over head_dim
 constexpr int kKTiles = kBlockK / 8;    // n8 tiles over a key tile
 constexpr int kQTiles = kBlockQ / 8;    // n8 tiles over a query tile
+
+// Per head_dim constants. Shared-memory row pitch in elements, kLd =
+// D + 8: rows stay 16-byte aligned, and the pitch in 32-bit words is 4
+// mod 32 words at D 64 (36) and D 128 (68), so the 8 rows x 4 words of
+// a fragment read fall in 32 different banks.
+template <int D>
+struct Dims {
+  static constexpr int kLd = D + 8;
+  static constexpr int kKSteps = D / 16;  // k16 steps over head_dim
+  static constexpr int kDTiles = D / 8;   // n8 tiles over head_dim
+  static constexpr int kTile = 64 * kLd;  // elements of one 64-row tile
+};
 
 struct MaskArgs {
   int tq;        // query rows
@@ -116,10 +129,11 @@ __device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// p[0] and the element one shared-memory row below it.
+// p[0] and the element one shared-memory row (ld elements) below it.
+template <int LD>
 __device__ __forceinline__ uint32_t ld_col_pair(const bf16* p) {
   const uint32_t lo = *reinterpret_cast<const uint16_t*>(p);
-  const uint32_t hi = *reinterpret_cast<const uint16_t*>(p + kLd);
+  const uint32_t hi = *reinterpret_cast<const uint16_t*>(p + LD);
   return lo | (hi << 16);
 }
 
@@ -130,10 +144,11 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // Rows [row0, row0 + 64) of one (batch, head) slice into shared memory,
 // 16 bytes a thread; rows at or past `rows` are zero.
+template <int D>
 __device__ __forceinline__ void load_tile(bf16* s, const bf16* g,
                                           long long row_stride, int row0,
                                           int rows) {
-  constexpr int kChunks = kHeadDim / 8;
+  constexpr int kChunks = D / 8;
   for (int i = threadIdx.x; i < 64 * kChunks; i += kThreads) {
     const int r = i / kChunks, c = i % kChunks;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
@@ -141,40 +156,43 @@ __device__ __forceinline__ void load_tile(bf16* s, const bf16* g,
       val = *reinterpret_cast<const uint4*>(
           g + (long long)(row0 + r) * row_stride + c * 8);
     }
-    *reinterpret_cast<uint4*>(s + r * kLd + c * 8) = val;
+    *reinterpret_cast<uint4*>(s + r * Dims<D>::kLd + c * 8) = val;
   }
 }
 
 // mma.m16n8k16 operand fragments. Lane = 4 * g + t.
 // A (16 x 16, row major) from rows [r0, r0 + 16) of a row-major tile,
 // columns [16 kk, 16 kk + 16).
+template <int LD>
 __device__ __forceinline__ void load_a(uint32_t* a, const bf16* s, int r0,
                                        int kk, int g, int t) {
-  const bf16* p = s + (r0 + g) * kLd + kk * 16 + 2 * t;
+  const bf16* p = s + (r0 + g) * LD + kk * 16 + 2 * t;
   a[0] = ld_pair(p);
-  a[1] = ld_pair(p + 8 * kLd);
+  a[1] = ld_pair(p + 8 * LD);
   a[2] = ld_pair(p + 8);
-  a[3] = ld_pair(p + 8 * kLd + 8);
+  a[3] = ld_pair(p + 8 * LD + 8);
 }
 
 // B (16 x 8) for X Y^T, from a row-major Y tile whose rows are the n
 // index: b(k, n) = Y[n0 + n][16 kk + k].
+template <int LD>
 __device__ __forceinline__ void load_b_nk(uint32_t& b0, uint32_t& b1,
                                           const bf16* s, int n0, int kk,
                                           int g, int t) {
-  const bf16* p = s + (n0 + g) * kLd + kk * 16 + 2 * t;
+  const bf16* p = s + (n0 + g) * LD + kk * 16 + 2 * t;
   b0 = ld_pair(p);
   b1 = ld_pair(p + 8);
 }
 
 // B (16 x 8) for X Y, from a row-major Y tile whose rows are the k
 // index: b(k, n) = Y[16 kk + k][n0 + n].
+template <int LD>
 __device__ __forceinline__ void load_b_kn(uint32_t& b0, uint32_t& b1,
                                           const bf16* s, int n0, int kk,
                                           int g, int t) {
-  const bf16* p = s + (kk * 16 + 2 * t) * kLd + n0 + g;
-  b0 = ld_col_pair(p);
-  b1 = ld_col_pair(p + 8 * kLd);
+  const bf16* p = s + (kk * 16 + 2 * t) * LD + n0 + g;
+  b0 = ld_col_pair<LD>(p);
+  b1 = ld_col_pair<LD>(p + 8 * LD);
 }
 
 // The f32 accumulators of two n8 tiles (columns [0, 8) and [8, 16) of a
@@ -210,17 +228,29 @@ __device__ __forceinline__ void key_tile_range(const MaskArgs& m, int q0,
   end = k_end > k_begin ? (k_end + kBlockK - 1) / kBlockK : begin;
 }
 
+// Dynamic shared memory of the three kernels, in bytes.
+template <int D>
+constexpr int fwd_smem() { return 3 * Dims<D>::kTile * 2; }
+template <int D>
+constexpr int dkdv_smem() { return 4 * Dims<D>::kTile * 2 + 2 * kBlockQ * 4; }
+template <int D>
+constexpr int dq_smem() { return 2 * Dims<D>::kTile * 2; }
+
 // O and lse for 64 query rows of one (batch, head). Grid: (query tiles,
 // heads, batch); the last (most loaded, under causal) query tiles are
-// scheduled first.
+// scheduled first. Shared memory: q, k, v tiles.
+template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ o,
                      float* __restrict__ lse, int tk, int heads, Strides qs,
                      Strides ks, Strides vs, float scale, MaskArgs m) {
-  __shared__ __align__(16) bf16 sq[kBlockQ * kLd];
-  __shared__ __align__(16) bf16 sk[kBlockK * kLd];
-  __shared__ __align__(16) bf16 sv[kBlockK * kLd];
+  using Dm = Dims<D>;
+  constexpr int kLd = Dm::kLd, kKSteps = Dm::kKSteps, kDTiles = Dm::kDTiles;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sq = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sk = sq + Dm::kTile;
+  bf16* sv = sk + Dm::kTile;
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockQ;
   const int h = blockIdx.y, b = blockIdx.z;
@@ -232,11 +262,11 @@ __global__ void __launch_bounds__(kThreads)
   const bf16* kb = k + b * ks.b + h * ks.h;
   const bf16* vb = v + b * vs.b + h * vs.h;
 
-  load_tile(sq, qb, qs.t, q0, m.tq);
+  load_tile<D>(sq, qb, qs.t, q0, m.tq);
   __syncthreads();
   uint32_t qf[kKSteps][4];
 #pragma unroll
-  for (int kk = 0; kk < kKSteps; ++kk) load_a(qf[kk], sq, wr, kk, g, t);
+  for (int kk = 0; kk < kKSteps; ++kk) load_a<kLd>(qf[kk], sq, wr, kk, g, t);
 
   float acc[kDTiles][4];
 #pragma unroll
@@ -253,8 +283,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * kBlockK;
     __syncthreads();  // every warp is done with the previous tile
-    load_tile(sk, kb, ks.t, k0, tk);
-    load_tile(sv, vb, vs.t, k0, tk);
+    load_tile<D>(sk, kb, ks.t, k0, tk);
+    load_tile<D>(sv, vb, vs.t, k0, tk);
     __syncthreads();
     const bool masked = tile_needs_mask(m, q0, k0);
 
@@ -266,7 +296,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int kk = 0; kk < kKSteps; ++kk) {
         uint32_t b0, b1;
-        load_b_nk(b0, b1, sk, nt * 8, kk, g, t);
+        load_b_nk<kLd>(b0, b1, sk, nt * 8, kk, g, t);
         mma16816(s[nt], qf[kk], b0, b1);
       }
     }
@@ -317,14 +347,14 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int dn = 0; dn < kDTiles; ++dn) {
         uint32_t b0, b1;
-        load_b_kn(b0, b1, sv, dn * 8, kk, g, t);
+        load_b_kn<kLd>(b0, b1, sv, dn * 8, kk, g, t);
         mma16816(acc[dn], a, b0, b1);
       }
     }
   }
 
-  const long long o_row = (long long)heads * kHeadDim;  // o is contiguous
-  bf16* ob = o + (long long)b * m.tq * o_row + h * kHeadDim;
+  const long long o_row = (long long)heads * D;  // o is contiguous
+  bf16* ob = o + (long long)b * m.tq * o_row + h * D;
   float* lse_bh = lse + ((long long)b * heads + h) * m.tq;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -343,7 +373,10 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // dK and dV for 64 keys of one (batch, head), looping over the query
-// tiles that see them. Grid: (key tiles, heads, batch).
+// tiles that see them. Grid: (key tiles, heads, batch). Shared memory:
+// the q and dO tiles of the loop, this block's K and V tiles (resident:
+// each warp reads its 16 keys' A fragments from them), lse and delta.
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -351,10 +384,15 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
     bf16* __restrict__ dk, bf16* __restrict__ dv, int tk, int heads,
     Strides qs, Strides ks, Strides vs, Strides dos, float scale,
     MaskArgs m) {
-  __shared__ __align__(16) bf16 sq[kBlockQ * kLd];
-  __shared__ __align__(16) bf16 sdo[kBlockQ * kLd];
-  __shared__ float slse[kBlockQ];
-  __shared__ float sdelta[kBlockQ];
+  using Dm = Dims<D>;
+  constexpr int kLd = Dm::kLd, kKSteps = Dm::kKSteps, kDTiles = Dm::kDTiles;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sq = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sdo = sq + Dm::kTile;
+  bf16* sk = sdo + Dm::kTile;
+  bf16* sv = sk + Dm::kTile;
+  float* slse = reinterpret_cast<float*>(sv + Dm::kTile);
+  float* sdelta = slse + kBlockQ;
 
   const int k0 = blockIdx.x * kBlockK;
   const int h = blockIdx.y, b = blockIdx.z;
@@ -367,17 +405,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
   const float* lse_bh = lse + ((long long)b * heads + h) * m.tq;
   const float* delta_bh = delta + ((long long)b * heads + h) * m.tq;
 
-  // This warp's 16 keys of K and V as A fragments, staged through the
-  // query buffers before the loop reuses them.
-  load_tile(sq, k + b * ks.b + h * ks.h, ks.t, k0, tk);
-  load_tile(sdo, v + b * vs.b + h * vs.h, vs.t, k0, tk);
-  __syncthreads();
-  uint32_t kf[kKSteps][4], vf[kKSteps][4];
-#pragma unroll
-  for (int kk = 0; kk < kKSteps; ++kk) {
-    load_a(kf[kk], sq, wr, kk, g, t);
-    load_a(vf[kk], sdo, wr, kk, g, t);
-  }
+  load_tile<D>(sk, k + b * ks.b + h * ks.h, ks.t, k0, tk);
+  load_tile<D>(sv, v + b * vs.b + h * vs.h, vs.t, k0, tk);
 
   float dk_acc[kDTiles][4], dv_acc[kDTiles][4];
 #pragma unroll
@@ -396,8 +425,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
   for (int qt = qt_begin; qt < qt_end; ++qt) {
     const int q0 = qt * kBlockQ;
     __syncthreads();
-    load_tile(sq, qb, qs.t, q0, m.tq);
-    load_tile(sdo, dob, dos.t, q0, m.tq);
+    load_tile<D>(sq, qb, qs.t, q0, m.tq);
+    load_tile<D>(sdo, dob, dos.t, q0, m.tq);
     if (threadIdx.x < kBlockQ) {
       const int qi = q0 + threadIdx.x;
       slse[threadIdx.x] = qi < m.tq ? lse_bh[qi] : 0.f;
@@ -407,18 +436,26 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
     const bool masked = tile_needs_mask(m, q0, k0);
 
     // P^T = exp(K Q^T * scale - lse): rows are this warp's keys,
-    // columns the tile's queries.
+    // columns the tile's queries. k16 steps outermost, so each K
+    // fragment is read from shared memory once.
     float pt[kQTiles][4];
 #pragma unroll
-    for (int nt = 0; nt < kQTiles; ++nt) {
+    for (int nt = 0; nt < kQTiles; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) pt[nt][e] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < kKSteps; ++kk) {
+    for (int kk = 0; kk < kKSteps; ++kk) {
+      uint32_t a[4];
+      load_a<kLd>(a, sk, wr, kk, g, t);
+#pragma unroll
+      for (int nt = 0; nt < kQTiles; ++nt) {
         uint32_t b0, b1;
-        load_b_nk(b0, b1, sq, nt * 8, kk, g, t);
-        mma16816(pt[nt], kf[kk], b0, b1);
+        load_b_nk<kLd>(b0, b1, sq, nt * 8, kk, g, t);
+        mma16816(pt[nt], a, b0, b1);
       }
+    }
+#pragma unroll
+    for (int nt = 0; nt < kQTiles; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = nt * 8 + 2 * t + (e & 1);
@@ -427,7 +464,6 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
           p = 0.f;
         pt[nt][e] = p;
       }
-    }
     // dV += P^T dO
 #pragma unroll
     for (int kk = 0; kk < kBlockQ / 16; ++kk) {
@@ -436,7 +472,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
 #pragma unroll
       for (int dn = 0; dn < kDTiles; ++dn) {
         uint32_t b0, b1;
-        load_b_kn(b0, b1, sdo, dn * 8, kk, g, t);
+        load_b_kn<kLd>(b0, b1, sdo, dn * 8, kk, g, t);
         mma16816(dv_acc[dn], a, b0, b1);
       }
     }
@@ -446,9 +482,10 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
       float dpt[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
       for (int kk = 0; kk < kKSteps; ++kk) {
-        uint32_t b0, b1;
-        load_b_nk(b0, b1, sdo, nt * 8, kk, g, t);
-        mma16816(dpt, vf[kk], b0, b1);
+        uint32_t a[4], b0, b1;
+        load_a<kLd>(a, sv, wr, kk, g, t);
+        load_b_nk<kLd>(b0, b1, sdo, nt * 8, kk, g, t);
+        mma16816(dpt, a, b0, b1);
       }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -464,14 +501,14 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
 #pragma unroll
       for (int dn = 0; dn < kDTiles; ++dn) {
         uint32_t b0, b1;
-        load_b_kn(b0, b1, sq, dn * 8, kk, g, t);
+        load_b_kn<kLd>(b0, b1, sq, dn * 8, kk, g, t);
         mma16816(dk_acc[dn], a, b0, b1);
       }
     }
   }
 
-  const long long row = (long long)heads * kHeadDim;  // dk, dv contiguous
-  const long long base = (long long)b * tk * row + h * kHeadDim;
+  const long long row = (long long)heads * D;  // dk, dv contiguous
+  const long long base = (long long)b * tk * row + h * D;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int kj = k0 + wr + g + 8 * r;
@@ -490,14 +527,19 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
 
 // dQ for 64 query rows of one (batch, head), looping over the key tiles
 // they see. Grid: (query tiles, heads, batch), last tiles first.
+// Shared memory: the k and v tiles of the loop.
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
     bf16* __restrict__ dq, int tk, int heads, Strides qs, Strides ks,
     Strides vs, Strides dos, float scale, MaskArgs m) {
-  __shared__ __align__(16) bf16 sk[kBlockK * kLd];
-  __shared__ __align__(16) bf16 sv[kBlockK * kLd];
+  using Dm = Dims<D>;
+  constexpr int kLd = Dm::kLd, kKSteps = Dm::kKSteps, kDTiles = Dm::kDTiles;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sk = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sv = sk + Dm::kTile;
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockQ;
   const int h = blockIdx.y, b = blockIdx.z;
@@ -510,14 +552,14 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
 
   // This warp's 16 rows of Q and dO as A fragments, staged through the
   // key buffers before the loop reuses them.
-  load_tile(sk, q + b * qs.b + h * qs.h, qs.t, q0, m.tq);
-  load_tile(sv, dout + b * dos.b + h * dos.h, dos.t, q0, m.tq);
+  load_tile<D>(sk, q + b * qs.b + h * qs.h, qs.t, q0, m.tq);
+  load_tile<D>(sv, dout + b * dos.b + h * dos.h, dos.t, q0, m.tq);
   __syncthreads();
   uint32_t qf[kKSteps][4], dof[kKSteps][4];
 #pragma unroll
   for (int kk = 0; kk < kKSteps; ++kk) {
-    load_a(qf[kk], sk, wr, kk, g, t);
-    load_a(dof[kk], sv, wr, kk, g, t);
+    load_a<kLd>(qf[kk], sk, wr, kk, g, t);
+    load_a<kLd>(dof[kk], sv, wr, kk, g, t);
   }
   float row_lse[2], row_delta[2];
 #pragma unroll
@@ -539,8 +581,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * kBlockK;
     __syncthreads();
-    load_tile(sk, kb, ks.t, k0, tk);
-    load_tile(sv, vb, vs.t, k0, tk);
+    load_tile<D>(sk, kb, ks.t, k0, tk);
+    load_tile<D>(sv, vb, vs.t, k0, tk);
     __syncthreads();
     const bool masked = tile_needs_mask(m, q0, k0);
 
@@ -553,9 +595,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
 #pragma unroll
       for (int kk = 0; kk < kKSteps; ++kk) {
         uint32_t b0, b1;
-        load_b_nk(b0, b1, sk, nt * 8, kk, g, t);
+        load_b_nk<kLd>(b0, b1, sk, nt * 8, kk, g, t);
         mma16816(s, qf[kk], b0, b1);
-        load_b_nk(b0, b1, sv, nt * 8, kk, g, t);
+        load_b_nk<kLd>(b0, b1, sv, nt * 8, kk, g, t);
         mma16816(dp, dof[kk], b0, b1);
       }
 #pragma unroll
@@ -576,14 +618,14 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
 #pragma unroll
       for (int dn = 0; dn < kDTiles; ++dn) {
         uint32_t b0, b1;
-        load_b_kn(b0, b1, sk, dn * 8, kk, g, t);
+        load_b_kn<kLd>(b0, b1, sk, dn * 8, kk, g, t);
         mma16816(dq_acc[dn], a, b0, b1);
       }
     }
   }
 
-  const long long row = (long long)heads * kHeadDim;  // dq contiguous
-  bf16* dqb = dq + (long long)b * m.tq * row + h * kHeadDim;
+  const long long row = (long long)heads * D;  // dq contiguous
+  bf16* dqb = dq + (long long)b * m.tq * row + h * D;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int qi = q0 + wr + g + 8 * r;
@@ -596,15 +638,79 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   }
 }
 
-inline int launch_status() { return (int)cudaGetLastError(); }
+// Allow `bytes` of dynamic shared memory for `kernel` on the current
+// device, once per device (above 48 KB a launch is refused without it).
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes, unsigned& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned bit = 1u << (dev & 31);
+  if (done & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done |= bit;
+  return err;
+}
+
+template <int D>
+int launch_fwd(const void* q, const void* k, const void* v, void* o,
+               void* lse, int batch, int tq, int tk, int heads, Strides qs,
+               Strides ks, Strides vs, float scale, MaskArgs m,
+               cudaStream_t stream) {
+  static unsigned done = 0;
+  constexpr int smem = fwd_smem<D>();
+  cudaError_t err = allow_smem(flash_fwd_kernel<D>, smem, done);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((tq + kBlockQ - 1) / kBlockQ, heads, batch);
+  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o,
+      (float*)lse, tk, heads, qs, ks, vs, scale, m);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dkdv(const void* q, const void* k, const void* v,
+                const void* dout, const void* lse, const void* delta,
+                void* dk, void* dv, int batch, int tk, int heads,
+                Strides qs, Strides ks, Strides vs, Strides dos,
+                float scale, MaskArgs m, cudaStream_t stream) {
+  static unsigned done = 0;
+  constexpr int smem = dkdv_smem<D>();
+  cudaError_t err = allow_smem(flash_bwd_dkdv_kernel<D>, smem, done);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((tk + kBlockK - 1) / kBlockK, heads, batch);
+  flash_bwd_dkdv_kernel<D><<<grid, kThreads, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
+      (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, tk,
+      heads, qs, ks, vs, dos, scale, m);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+              const void* lse, const void* delta, void* dq, int batch,
+              int tq, int tk, int heads, Strides qs, Strides ks, Strides vs,
+              Strides dos, float scale, MaskArgs m, cudaStream_t stream) {
+  static unsigned done = 0;
+  constexpr int smem = dq_smem<D>();
+  cudaError_t err = allow_smem(flash_bwd_dq_kernel<D>, smem, done);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((tq + kBlockQ - 1) / kBlockQ, heads, batch);
+  flash_bwd_dq_kernel<D><<<grid, kThreads, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
+      (const float*)lse, (const float*)delta, (bf16*)dq, tk, heads, qs, ks,
+      vs, dos, scale, m);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
 extern "C" {
 
-// q [B, Tq, H, 64], k/v [B, Tk, H, 64] bf16 with the given element
-// strides (unit stride on the head dim, 16-byte aligned rows);
-// o [B, Tq, H, 64] bf16 and lse [B, H, Tq] f32, both contiguous.
+// q [B, Tq, H, D], k/v [B, Tk, H, D] bf16, D 64 or 128, with the given
+// element strides (unit stride on the head dim, 16-byte aligned rows);
+// o [B, Tq, H, D] bf16 and lse [B, H, Tq] f32, both contiguous.
 int dlrover_flash_fwd(const void* q, const void* k, const void* v, void* o,
                       void* lse, int batch, int tq, int tk, int heads,
                       int head_dim, long long q_sb, long long q_st,
@@ -612,18 +718,21 @@ int dlrover_flash_fwd(const void* q, const void* k, const void* v, void* o,
                       long long k_sh, long long v_sb, long long v_st,
                       long long v_sh, float scale, int causal, int window,
                       int q_offset, int seq_len, void* stream) {
-  if (head_dim != kHeadDim || tq <= 0 || tk <= 0)
-    return (int)cudaErrorInvalidValue;
+  if (tq <= 0 || tk <= 0) return (int)cudaErrorInvalidValue;
   const MaskArgs m{tq, seq_len, q_offset, causal, window};
-  const dim3 grid((tq + kBlockQ - 1) / kBlockQ, heads, batch);
-  flash_fwd_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o,
-      (float*)lse, tk, heads, Strides{q_sb, q_st, q_sh},
-      Strides{k_sb, k_st, k_sh}, Strides{v_sb, v_st, v_sh}, scale, m);
-  return launch_status();
+  const Strides qs{q_sb, q_st, q_sh}, ks{k_sb, k_st, k_sh},
+      vs{v_sb, v_st, v_sh};
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (head_dim == 64)
+    return launch_fwd<64>(q, k, v, o, lse, batch, tq, tk, heads, qs, ks, vs,
+                          scale, m, s);
+  if (head_dim == 128)
+    return launch_fwd<128>(q, k, v, o, lse, batch, tq, tk, heads, qs, ks,
+                           vs, scale, m, s);
+  return (int)cudaErrorInvalidValue;
 }
 
-// dk/dv [B, Tk, H, 64] bf16 contiguous; dout strided like q; lse and
+// dk/dv [B, Tk, H, D] bf16 contiguous; dout strided like q; lse and
 // delta [B, H, Tq] f32 contiguous.
 int dlrover_flash_bwd_dkdv(const void* q, const void* k, const void* v,
                            const void* dout, const void* lse,
@@ -635,19 +744,21 @@ int dlrover_flash_bwd_dkdv(const void* q, const void* k, const void* v,
                            long long do_sb, long long do_st, long long do_sh,
                            float scale, int causal, int window, int q_offset,
                            int seq_len, void* stream) {
-  if (head_dim != kHeadDim || tq <= 0 || tk <= 0)
-    return (int)cudaErrorInvalidValue;
+  if (tq <= 0 || tk <= 0) return (int)cudaErrorInvalidValue;
   const MaskArgs m{tq, seq_len, q_offset, causal, window};
-  const dim3 grid((tk + kBlockK - 1) / kBlockK, heads, batch);
-  flash_bwd_dkdv_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, tk,
-      heads, Strides{q_sb, q_st, q_sh}, Strides{k_sb, k_st, k_sh},
-      Strides{v_sb, v_st, v_sh}, Strides{do_sb, do_st, do_sh}, scale, m);
-  return launch_status();
+  const Strides qs{q_sb, q_st, q_sh}, ks{k_sb, k_st, k_sh},
+      vs{v_sb, v_st, v_sh}, dos{do_sb, do_st, do_sh};
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (head_dim == 64)
+    return launch_dkdv<64>(q, k, v, dout, lse, delta, dk, dv, batch, tk,
+                           heads, qs, ks, vs, dos, scale, m, s);
+  if (head_dim == 128)
+    return launch_dkdv<128>(q, k, v, dout, lse, delta, dk, dv, batch, tk,
+                            heads, qs, ks, vs, dos, scale, m, s);
+  return (int)cudaErrorInvalidValue;
 }
 
-// dq [B, Tq, H, 64] bf16 contiguous.
+// dq [B, Tq, H, D] bf16 contiguous.
 int dlrover_flash_bwd_dq(const void* q, const void* k, const void* v,
                          const void* dout, const void* lse, const void* delta,
                          void* dq, int batch, int tq, int tk, int heads,
@@ -657,16 +768,18 @@ int dlrover_flash_bwd_dq(const void* q, const void* k, const void* v,
                          long long v_sh, long long do_sb, long long do_st,
                          long long do_sh, float scale, int causal, int window,
                          int q_offset, int seq_len, void* stream) {
-  if (head_dim != kHeadDim || tq <= 0 || tk <= 0)
-    return (int)cudaErrorInvalidValue;
+  if (tq <= 0 || tk <= 0) return (int)cudaErrorInvalidValue;
   const MaskArgs m{tq, seq_len, q_offset, causal, window};
-  const dim3 grid((tq + kBlockQ - 1) / kBlockQ, heads, batch);
-  flash_bwd_dq_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-      (const float*)lse, (const float*)delta, (bf16*)dq, tk, heads,
-      Strides{q_sb, q_st, q_sh}, Strides{k_sb, k_st, k_sh},
-      Strides{v_sb, v_st, v_sh}, Strides{do_sb, do_st, do_sh}, scale, m);
-  return launch_status();
+  const Strides qs{q_sb, q_st, q_sh}, ks{k_sb, k_st, k_sh},
+      vs{v_sb, v_st, v_sh}, dos{do_sb, do_st, do_sh};
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (head_dim == 64)
+    return launch_dq<64>(q, k, v, dout, lse, delta, dq, batch, tq, tk, heads,
+                         qs, ks, vs, dos, scale, m, s);
+  if (head_dim == 128)
+    return launch_dq<128>(q, k, v, dout, lse, delta, dq, batch, tq, tk,
+                          heads, qs, ks, vs, dos, scale, m, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

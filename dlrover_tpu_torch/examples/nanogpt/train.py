@@ -8,7 +8,10 @@ Builds the GPT (``models/gpt.py``), the optax-matching AdamW
 (``optim/adamw.py``, lr 3e-4 and weight decay 0.1 as the JAX bench) and
 the fixed-global-batch ``ElasticTrainer`` over synthetic tokens (a
 Zipfian stream with bigram mixing, made from a seed, so the run needs
-no download), and prints each step's loss, time and tokens per second. It runs on the card unless ``--device cpu`` is given.
+no download), and prints each step's loss, time and tokens per second.
+It runs on the card unless ``--device cpu`` is given; ``--attention
+dense`` and ``--norm plain`` take the plain attention and LayerNorm
+instead of the kernels.
 Elastic launch, flash checkpoint and ``auto_accelerate`` arrive with
 later slices of the port (ROADMAP queue 1).
 """
@@ -16,11 +19,9 @@ later slices of the port (ROADMAP queue 1).
 from __future__ import annotations
 
 import argparse
-import contextlib
 import dataclasses
 import functools
 import math
-import os
 import sys
 import time
 
@@ -35,6 +36,7 @@ from dlrover_tpu_torch.trainer.elastic_trainer import (
     ElasticDistributedSampler,
     ElasticTrainer,
 )
+from dlrover_tpu_torch.trainer.profile import profiler, write_profile
 
 
 def parse_args(argv=None):
@@ -49,6 +51,9 @@ def parse_args(argv=None):
     p.add_argument("--attention", default="auto", choices=["auto", "dense"],
                    help="auto: flash kernels on CUDA from 512 context up; "
                    "dense: the plain masked softmax")
+    p.add_argument("--norm", default="auto", choices=["auto", "plain"],
+                   help="auto: fused LayerNorm kernels on CUDA; plain: "
+                   "the plain LayerNorm")
     p.add_argument("--device", default=None,
                    help="default cuda; cpu only when asked for")
     p.add_argument("--seed", type=int, default=0)
@@ -71,6 +76,8 @@ def model_config(args) -> gpt.GPTConfig:
         cfg = getattr(gpt.GPTConfig, args.model)()
     if args.attention == "dense":
         cfg = dataclasses.replace(cfg, use_flash_attention=False)
+    if args.norm == "plain":
+        cfg = dataclasses.replace(cfg, use_fused_norm=False)
     return cfg
 
 
@@ -142,7 +149,7 @@ def run(args) -> dict:
     tokens_per_step = trainer.samples_per_step * cfg.block_size
     for step in range(1, args.steps + 1):
         tok, tgt = next(batches)
-        prof = _profiler(args.profile if step == args.steps else "")
+        prof = profiler(args.profile if step == args.steps else "")
         with prof:
             t0 = time.perf_counter()
             params, opt_state, loss_dev = trainer.train_step(
@@ -153,7 +160,7 @@ def run(args) -> dict:
             losses.append(materialize(loss_dev, reason="log"))
             dt = time.perf_counter() - t0
         if args.profile and step == args.steps:
-            _write_profile(prof, dt, args.profile)
+            write_profile(prof, dt, args.profile)
         step_s.append(dt)
         print(
             f"step {step}: loss {losses[-1]:.4f} {dt:.3f} s "
@@ -176,40 +183,6 @@ def run(args) -> dict:
         "peak_mem_gib": peak,
         "finite": all(math.isfinite(x) for x in losses),
     }
-
-
-def _profiler(path: str):
-    if not path:
-        return contextlib.nullcontext()
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    return torch.profiler.profile(activities=acts)
-
-
-def _write_profile(prof, step_s: float, path: str) -> None:
-    """Device time by kernel for the profiled step (the profiler slows
-    the host side, so the step's wall time here is longer than an
-    unprofiled step's; the kernels' times are their own)."""
-    kernels = [
-        a for a in prof.key_averages()
-        if a.device_type == torch.autograd.DeviceType.CUDA
-    ]
-    kernels.sort(key=lambda a: -a.self_device_time_total)
-    busy_ms = sum(a.self_device_time_total for a in kernels) / 1e3
-    head = (
-        f"profiled step: wall {step_s * 1e3:.3f} ms, device busy "
-        f"{busy_ms:.3f} ms in {sum(a.count for a in kernels)} kernels"
-    )
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    with open(path, "w") as f:
-        f.write(head + "\n  device_ms  calls  kernel\n")
-        for a in kernels:
-            f.write(
-                f"{a.self_device_time_total / 1e3:11.3f} {a.count:6d}  "
-                f"{a.key[:160]}\n"
-            )
-    print(f"profile: {head}; table in {path}", flush=True)
 
 
 def main(argv=None) -> int:

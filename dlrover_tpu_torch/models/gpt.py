@@ -15,7 +15,10 @@ back to x's dtype; the embedding add in the parameter dtype; tanh GELU
 
 On a CUDA device attention runs the flash-attention kernels
 (``ops/flash_attention.py``) from 512 context up; the dense masked
-softmax otherwise or when ``use_flash_attention=False``.
+softmax otherwise or when ``use_flash_attention=False``. The norms run
+the fused LayerNorm kernels (``ops/layer_norm.py``) for a bf16 model on
+CUDA, with the attention residual add fused into the second norm; the
+plain LayerNorm otherwise or when ``use_fused_norm=False``.
 """
 
 from __future__ import annotations
@@ -33,6 +36,10 @@ from dlrover_tpu_torch.common.device import DeviceLike, resolve_device
 from dlrover_tpu_torch.common.tree import tree_leaves
 from dlrover_tpu_torch.ops.cross_entropy import dot_f32, fused_cross_entropy
 from dlrover_tpu_torch.ops.flash_attention import flash_attention
+from dlrover_tpu_torch.ops.layer_norm import (
+    fused_add_layer_norm,
+    fused_layer_norm,
+)
 
 Params = Dict[str, Any]
 
@@ -55,7 +62,8 @@ class GPTConfig:
     remat: Any = True  # accelerate/remat.py policy; True = "full"
     # None = flash kernels on CUDA from 512 context up; True/False force.
     use_flash_attention: Optional[bool] = None
-    # None/False = plain LayerNorm; True needs kernels K3/K4 (not ported).
+    # None = fused norm kernels for bf16 on CUDA, plain LayerNorm
+    # otherwise; True/False force.
     use_fused_norm: Optional[bool] = None
     causal: bool = True
     attn_blocks: Optional[tuple] = None
@@ -143,16 +151,37 @@ def _layer_norm(x, g, b, eps=1e-5):
     return out.to(x.dtype)
 
 
-def _default_attention(q, k, v, causal=True):
+def use_fused_norm(cfg, device=None) -> bool:
+    """Whether the blocks run the fused norm kernels (K3/K4,
+    ``ops/layer_norm.py``): ``cfg.use_fused_norm`` when set, else for a
+    bf16 model (the kernels' type) on CUDA and not on the CPU. The JAX
+    package defaults to off from a v5e measurement, which does not
+    carry over to this card."""
+    if cfg.use_fused_norm is not None:
+        return bool(cfg.use_fused_norm)
+    return (
+        torch.device(device or "cpu").type == "cuda"
+        and cfg.dtype == torch.bfloat16
+    )
+
+
+def _default_attention(q, k, v, causal=True, window=None):
     """Plain masked softmax attention on [B, T, H, D] (the JAX
     package's ``_default_attention``): f32 scores, softmax, P cast to
-    v's dtype for the value product. The sliding window arrives with
-    the Llama slice."""
+    v's dtype for the value product. ``window`` is the Mistral sliding
+    window: query i sees keys (i - window, i]."""
+    if window is not None and not causal:
+        raise ValueError(
+            "window (sliding-window attention) requires causal=True"
+        )
     lq, d = q.shape[1], q.shape[-1]
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(d)
-    if causal:
+    if causal or window is not None:
         pos = torch.arange(lq, device=q.device)
-        s = s.masked_fill(pos[:, None] < pos[None, :], -1e30)
+        hidden = pos[:, None] < pos[None, :]
+        if window is not None:
+            hidden |= (pos[:, None] - pos[None, :]) >= window
+        s = s.masked_fill(hidden, -1e30)
     p = torch.softmax(s, dim=-1).to(v.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
 
@@ -162,15 +191,23 @@ def _block(x, lp, cfg: GPTConfig, attn_fn):
     stacked block parameters."""
     B, T, E = x.shape
     H, D = cfg.n_head, cfg.head_dim
-    h = _layer_norm(x, lp["ln1_g"], lp["ln1_b"])
+    fused = use_fused_norm(cfg, x.device)
+    if fused:
+        h = fused_layer_norm(x, lp["ln1_g"], lp["ln1_b"])
+    else:
+        h = _layer_norm(x, lp["ln1_g"], lp["ln1_b"])
     qkv = h @ lp["wqkv"]  # [B, T, 3E]
     q, k, v = qkv.split(E, dim=-1)
     att = attn_fn(
         q.reshape(B, T, H, D), k.reshape(B, T, H, D), v.reshape(B, T, H, D)
     ).reshape(B, T, E)
     att_out = att @ lp["wo"]
-    x = x + att_out
-    h = _layer_norm(x, lp["ln2_g"], lp["ln2_b"])
+    if fused:
+        # The attention residual add rides inside the norm kernel.
+        h, x = fused_add_layer_norm(att_out, x, lp["ln2_g"], lp["ln2_b"])
+    else:
+        x = x + att_out
+        h = _layer_norm(x, lp["ln2_g"], lp["ln2_b"])
     h = F.gelu(h @ lp["wi"] + lp["bi"], approximate="tanh")
     x = x + h @ lp["wo2"] + lp["bo2"]
     return x
@@ -179,7 +216,8 @@ def _block(x, lp, cfg: GPTConfig, attn_fn):
 def default_attention_for(cfg: GPTConfig, device=None) -> Callable:
     """The attention implementation for this config on ``device``:
     the flash kernels on CUDA from 512 context up (None), or as
-    ``cfg.use_flash_attention`` forces."""
+    ``cfg.use_flash_attention`` forces; with the config's sliding
+    window where it has one (the Llama family)."""
     if cfg.attn_blocks is not None:
         raise NotImplementedError(
             "attn_blocks tunes the TPU kernel's tiles; the CUDA kernels "
@@ -191,9 +229,9 @@ def default_attention_for(cfg: GPTConfig, device=None) -> Callable:
             torch.device(device or "cpu").type == "cuda"
             and cfg.block_size >= 512
         )
-    if use_flash:
-        return functools.partial(flash_attention, causal=cfg.causal)
-    return functools.partial(_default_attention, causal=cfg.causal)
+    window = getattr(cfg, "sliding_window", None)
+    fn = flash_attention if use_flash else _default_attention
+    return functools.partial(fn, causal=cfg.causal, window=window)
 
 
 def backbone(
@@ -203,13 +241,8 @@ def backbone(
     attn_fn: Optional[Callable] = None,
 ) -> torch.Tensor:
     """[B, T] tokens -> final hidden [B, T, E], without the
-    unembedding (the fused cross-entropy starts here)."""
-    if cfg.use_fused_norm:
-        raise NotImplementedError(
-            "use_fused_norm=True needs the fused norm kernels K3/K4 "
-            "(dlrover_tpu/ops/layer_norm.py), not ported yet (ROADMAP "
-            "queue 2)"
-        )
+    unembedding (the fused cross-entropy starts here). The final norm
+    is the plain LayerNorm, as in the JAX package."""
     if attn_fn is None:
         attn_fn = default_attention_for(cfg, tokens.device)
     T = tokens.shape[1]

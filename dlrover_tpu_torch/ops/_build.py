@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -122,3 +123,32 @@ def load(name: str) -> ctypes.CDLL:
         if name not in _loaded:
             _loaded[name] = ctypes.CDLL(str(_lib_path(name)))
         return _loaded[name]
+
+
+def ptxas_usage(out: str) -> Dict[str, dict]:
+    """Registers and spill bytes per kernel from a build's ``-Xptxas -v``
+    output, keyed by a readable kernel name: ``flash_fwd_kernel<128>``,
+    ``layer_norm_fwd_kernel<4,1,0,1>`` (the template arguments)."""
+    usage, fn = {}, ""
+    for line in out.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = _kernel_name(m.group(1))
+            usage[fn] = {}
+        r = re.search(r"Used (\d+) registers", line)
+        if r and fn:
+            usage[fn]["registers"] = int(r.group(1))
+        sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                       line)
+        if sp and fn:
+            usage[fn]["spill_bytes"] = int(sp.group(1)) + int(sp.group(2))
+    return usage
+
+
+def _kernel_name(mangled: str) -> str:
+    m = re.search(r"([a-z][a-z_]*_kernel)I(.*)EEv", mangled)
+    if m:  # a template: integer and bool arguments Li<n>E / Lb<n>E
+        args = re.sub(r"L[ib](\d+)E", r"\1,", m.group(2))
+        return f"{m.group(1)}<{args.rstrip(',')}>"
+    m = re.search(r"([a-z][a-z_]*_kernel)E", mangled)
+    return m.group(1) if m else mangled

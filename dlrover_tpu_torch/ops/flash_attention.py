@@ -7,11 +7,12 @@ masks (causal, Mistral sliding window, ragged key edge, ``q_offset`` for
 rectangular calls) and the same differentiable logsumexp. Power-of-two
 softmax scales (1/8 at head_dim 64) are folded into q before the kernel,
 as the JAX wrapper does, so autograd routes the q-gradient's scale
-through that multiply.
+through that multiply; any other scale (1/sqrt(128) at head_dim 128)
+reaches the kernel's ``scale`` argument.
 
 On a CUDA tensor the wrappers launch the kernels, or raise when the
-kernel does not take the input (it takes bf16 with head_dim 64). On a
-CPU tensor they run the plain versions in this module
+kernel does not take the input (it takes bf16 with head_dim 64 or 128).
+On a CPU tensor they run the plain versions in this module
 (:func:`flash_attention_ref` and :func:`flash_attention_bwd_ref`), which
 is what the tests here use. Nothing falls back from the card to the
 plain versions.
@@ -32,7 +33,7 @@ import torch
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
 
-HEAD_DIM = 64  # the head_dim the CUDA kernels are compiled for
+HEAD_DIMS = (64, 128)  # the head_dims the CUDA kernels are compiled for
 
 _I, _LL, _F, _P = (
     ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p
@@ -154,10 +155,10 @@ def _kernel_input(x: torch.Tensor, name: str) -> torch.Tensor:
             f"the CUDA flash-attention kernel takes bfloat16; {name} is "
             f"{x.dtype}"
         )
-    if x.dim() != 4 or x.shape[-1] != HEAD_DIM:
+    if x.dim() != 4 or x.shape[-1] not in HEAD_DIMS:
         raise ValueError(
-            f"the CUDA flash-attention kernel takes [B, T, H, {HEAD_DIM}]; "
-            f"{name} has shape {tuple(x.shape)}"
+            f"the CUDA flash-attention kernel takes [B, T, H, D] with "
+            f"head_dim D in {HEAD_DIMS}; {name} has shape {tuple(x.shape)}"
         )
     if (
         x.stride(-1) != 1

@@ -5,7 +5,8 @@ The same inputs, made with numpy from a seed, go through
 mode, as tests/test_flash_attention.py runs them on the CPU) and
 ``dlrover_tpu_torch.ops.flash_attention`` (on the CPU, the plain
 versions of the CUDA kernels): outputs, lse and the gradients of q, k
-and v.
+and v, at both head_dims the CUDA kernels are compiled for (64, GPT-2;
+128, Llama, whose softmax scale 1/sqrt(128) is not folded into q).
 
 Tolerances: f32 2e-5 (both sides compute in f32; only the order of the
 sums differs). bf16 2e-2 relative to the largest value: the Pallas
@@ -86,10 +87,11 @@ def _no_kernel_launches():
     assert tfa.FWD_LAUNCHES == 0 and tfa.BWD_LAUNCHES == 0
 
 
+@pytest.mark.parametrize("d", tfa.HEAD_DIMS)
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("t", [128, 256])
-def test_square_forward_and_grads(causal, t):
-    q, k, v, do, _ = _inputs(t + causal, 2, t, t)
+def test_square_forward_and_grads(causal, t, d):
+    q, k, v, do, _ = _inputs(t + causal, 2, t, t, d=d)
     jo, to, jg, tg = _run_both(
         lambda q, k, v: jfa.flash_attention(
             q, k, v, causal=causal, interpret=True
@@ -114,8 +116,9 @@ def test_key_padding_t120():
     _assert_close(jg, tg, "float32")
 
 
-def test_sliding_window_48():
-    q, k, v, do, _ = _inputs(4, 2, 128, 128)
+@pytest.mark.parametrize("d", tfa.HEAD_DIMS)
+def test_sliding_window_48(d):
+    q, k, v, do, _ = _inputs(4, 2, 128, 128, d=d)
     jo, to, jg, tg = _run_both(
         lambda q, k, v: jfa.flash_attention(
             q, k, v, window=48, interpret=True
@@ -127,11 +130,12 @@ def test_sliding_window_48():
     _assert_close(jg, tg, "float32")
 
 
+@pytest.mark.parametrize("d", tfa.HEAD_DIMS)
 @pytest.mark.parametrize(
     "causal,q_offset", [(True, None), (True, 64), (False, 0)]
 )
-def test_rect_q_offset(causal, q_offset):
-    q, k, v, do, _ = _inputs(5, 2, 64, 192)
+def test_rect_q_offset(causal, q_offset, d):
+    q, k, v, do, _ = _inputs(5, 2, 64, 192, d=d)
     jo, to, jg, tg = _run_both(
         lambda q, k, v: jfa.flash_attention_rect(
             q, k, v, causal=causal, q_offset=q_offset, interpret=True
@@ -145,10 +149,11 @@ def test_rect_q_offset(causal, q_offset):
     _assert_close(jg, tg, "float32")
 
 
+@pytest.mark.parametrize("d", tfa.HEAD_DIMS)
 @pytest.mark.parametrize("rect", [False, True])
-def test_return_lse_with_lse_cotangent(rect):
+def test_return_lse_with_lse_cotangent(rect, d):
     tq = 64 if rect else 128
-    q, k, v, do, g_lse = _inputs(6, 2, tq, 128)
+    q, k, v, do, g_lse = _inputs(6, 2, tq, 128, d=d)
     if rect:
         jf = lambda q, k, v: jfa.flash_attention_rect(  # noqa: E731
             q, k, v, return_lse=True, interpret=True
@@ -169,9 +174,10 @@ def test_return_lse_with_lse_cotangent(rect):
     _assert_close(jg, tg, "float32")
 
 
+@pytest.mark.parametrize("d", tfa.HEAD_DIMS)
 @pytest.mark.parametrize("causal", [True, False])
-def test_bf16_forward_and_grads(causal):
-    q, k, v, do, _ = _inputs(7, 2, 128, 128)
+def test_bf16_forward_and_grads(causal, d):
+    q, k, v, do, _ = _inputs(7, 2, 128, 128, d=d)
     jo, to, jg, tg = _run_both(
         lambda q, k, v: jfa.flash_attention(
             q, k, v, causal=causal, interpret=True

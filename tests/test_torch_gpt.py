@@ -114,6 +114,26 @@ def test_every_gradient_leaf_matches_jax(dtype, flash):
         _close(t, j, dtype, f"grad leaf {i}")
 
 
+def test_fused_norm_loss_and_gradients_match_jax():
+    """The fused-norm block (K3/K4 through their plain versions here)
+    against the JAX block with its Pallas norms in interpret mode: the
+    LayerNorm before attention, and the residual add fused into the
+    second norm."""
+    jcfg, tcfg = _configs("float32", False)
+    jcfg = jgpt.GPTConfig(**{**jcfg.__dict__, "use_fused_norm": True})
+    tcfg = tgpt.GPTConfig(**{**tcfg.__dict__, "use_fused_norm": True})
+    jp = _jax_params("float32")
+    tp = convert.params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+    tok, tgt = _batch(3)
+    jl, jg = jax.value_and_grad(jgpt.loss_fn_fused)(jp, tok, tgt, jcfg)
+    tl, tg = value_and_grad(
+        lambda p, a, b: tgpt.loss_fn_fused(p, a, b, tcfg)
+    )(tp, torch.tensor(tok).long(), torch.tensor(tgt).long())
+    _close(tl, jl, "float32", "loss")
+    for i, (j, t) in enumerate(zip(jax.tree.leaves(jg), tree_leaves(tg))):
+        _close(t, j, "float32", f"grad leaf {i}")
+
+
 @pytest.mark.parametrize("flash", [True, False])
 def test_remat_full_equals_none(flash):
     _, tcfg = _configs("float32", flash)
@@ -161,9 +181,17 @@ def test_configs_and_unported_options():
     _, tcfg = _configs("float32", False)
     tp = tgpt.init_params(tcfg, device="cpu")
     tok = torch.zeros(1, 8, dtype=torch.long)
+    # The fused norm kernels are on by default for bf16 on CUDA only;
+    # forcing them on the CPU runs their plain versions.
+    bf16 = tgpt.GPTConfig(**{**tcfg.__dict__, "dtype": torch.bfloat16})
+    assert tgpt.use_fused_norm(bf16, "cpu") is False
+    assert tgpt.use_fused_norm(bf16, "cuda") is True
+    assert tgpt.use_fused_norm(tcfg, "cuda") is False  # f32
+    forced = tgpt.GPTConfig(**{**tcfg.__dict__, "use_fused_norm": True})
+    assert tgpt.use_fused_norm(forced, "cpu") is True
+    assert tgpt.forward(tp, tok, forced).shape == (1, 8, tcfg.vocab_size)
     for bad in (
-        dict(use_fused_norm=True), dict(remat="dots"),
-        dict(attn_blocks=(64, 64, 64, 64)),
+        dict(remat="dots"), dict(attn_blocks=(64, 64, 64, 64)),
     ):
         cfg = tgpt.GPTConfig(**{**tcfg.__dict__, **bad})
         with pytest.raises(NotImplementedError):

@@ -23,6 +23,7 @@ import torch
 import dlrover_tpu_torch
 from dlrover_tpu_torch.ops import _build
 from dlrover_tpu_torch.ops import flash_attention as tfa
+from dlrover_tpu_torch.ops import layer_norm as tln
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PKG = pathlib.Path(dlrover_tpu_torch.__file__).parent
@@ -94,8 +95,9 @@ def no_gpu():
 
 def test_entry_points_without_device_raise(no_gpu):
     from dlrover_tpu_torch.common.device import resolve_device
+    from dlrover_tpu_torch.examples.llama_lora import train as lora_train
     from dlrover_tpu_torch.examples.nanogpt import train
-    from dlrover_tpu_torch.models import convert, gpt
+    from dlrover_tpu_torch.models import convert, gpt, llama
     from dlrover_tpu_torch.optim.adamw import AdamW
     from dlrover_tpu_torch.trainer.elastic_trainer import ElasticTrainer
 
@@ -109,6 +111,8 @@ def test_entry_points_without_device_raise(no_gpu):
         lambda: convert.params_from_jax({"w": torch.zeros(2).numpy()}),
         lambda: ElasticTrainer(lambda p, a, b: 0, AdamW(1e-3), 2, 1),
         lambda: train.main(["--smoke", "--steps", "1"]),
+        lambda: llama.init_params(llama.LlamaConfig.tiny()),
+        lambda: lora_train.main(["--preset", "tiny", "--steps", "1"]),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
@@ -139,7 +143,7 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setattr(_build, "build_dir", lambda: tmp_path / "b")
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        _build.build(["flash_attention"])
+        _build.build(["flash_attention", "layer_norm"])
     # nvcc is looked up before the build directory is made
     assert not (tmp_path / "b").exists()
     lib = _build._lib_path("flash_attention")
@@ -167,17 +171,33 @@ def test_wrappers_send_cuda_tensors_to_the_kernels(monkeypatch):
 
     monkeypatch.setattr(tfa, "flash_attention_ref", plain)
     monkeypatch.setattr(tfa, "flash_attention_bwd_ref", plain)
+    monkeypatch.setattr(
+        tln, "_fwd_cuda", lambda *a: calls.append("norm_fwd") or "nf"
+    )
+    monkeypatch.setattr(
+        tln, "_bwd_cuda", lambda *a: calls.append("norm_bwd") or "nb"
+    )
+    monkeypatch.setattr(tln, "layer_norm_fwd_ref", plain)
+    monkeypatch.setattr(tln, "layer_norm_bwd_ref", plain)
     x = _CudaLike()
     assert tfa._fwd(x, x, x, True, 1.0, None, 0) == ("o", "lse")
     assert tfa._bwd(x, x, x, x, x, x, True, 1.0, None, 0) == (1, 2, 3)
-    assert calls == ["fwd", "bwd"]
+    assert tln._fwd(x, None, x, None, 1e-5, False) == "nf"
+    assert tln._bwd(x, x, x, x, x, True, False) == "nb"
+    assert calls == ["fwd", "bwd", "norm_fwd", "norm_bwd"]
 
 
 def test_kernel_input_checks_raise():
     with pytest.raises(TypeError, match="bfloat16"):
         tfa._kernel_input(torch.zeros(1, 8, 1, 64), "q")
-    with pytest.raises(ValueError, match="head_dim|64"):
-        tfa._kernel_input(torch.zeros(1, 8, 1, 32, dtype=torch.bfloat16), "q")
+    for d in (32, 96, 256):
+        with pytest.raises(ValueError, match=r"head_dim D in \(64, 128\)"):
+            tfa._kernel_input(
+                torch.zeros(1, 8, 1, d, dtype=torch.bfloat16), "q"
+            )
+    for d in tfa.HEAD_DIMS:
+        x = torch.zeros(1, 8, 1, d, dtype=torch.bfloat16)
+        assert tfa._kernel_input(x, "q") is x
     q = torch.zeros(2, 8, 3, 64, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="share q's"):
         tfa._check_kv(q, q[:, :, :2], q[:, :, :2])
@@ -191,3 +211,23 @@ def test_build_dir_is_ignored_by_git():
     assert os.path.relpath(_build.CSRC, REPO) == os.path.join(
         "dlrover_tpu_torch", "csrc"
     )
+
+
+def test_ptxas_usage_reads_registers_and_spills():
+    out = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116flash_fwd_kernelILi64EEEvPK13__nv_bfloat16S3_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_116flash_fwd_kernelILi64EEEvPK13__nv_bfloat16S3_
+    32 bytes stack frame, 16 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 528 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_121layer_norm_bwd_kernelILi4ELb0ELb1EEEvNS_7BwdArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_121layer_norm_bwd_kernelILi4ELb0ELb1EEEvNS_7BwdArgsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 176 registers, used 1 barriers, 448 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119flash_bwd_dq_kernelEPK13__nv_bfloat16' for 'sm_90a'
+ptxas info    : Used 168 registers, used 1 barriers, 528 bytes cmem[0]
+"""
+    assert _build.ptxas_usage(out) == {
+        "flash_fwd_kernel<64>": {"spill_bytes": 32, "registers": 128},
+        "layer_norm_bwd_kernel<4,0,1>": {"spill_bytes": 0, "registers": 176},
+        "flash_bwd_dq_kernel": {"registers": 168},
+    }
