@@ -27,11 +27,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
    output (out, resid, mu, rstd, dx, dg, db) held to its limit; and the
    LayerNorm case run through the RMS variant, on rows with a non-zero
    mean, must fail them.
+   Blockwise quantization (K5 int8, K6 packed int4, signed and
+   unsigned): quantize and dequantize at GPT-2's largest quantized leaf
+   (wte, 38,633,472 values), a ragged 1000 x 1024 + 77 values, an
+   all-zero block, a block with one non-zero value and lognormal values
+   from 1e-30 to 1e4, each held bitwise to the plain versions (codes or
+   packed bytes, scales, dequantized values); and the kernel's packed
+   int4 read back with the adjacent-pair layout must fail the same
+   comparison.
 3. ``times``: each kernel's median time at each path's shape beside its
    plain version's, the library call that computes the same function
    (``scaled_dot_product_attention``, ``F.layer_norm``,
    ``F.rms_norm``; yardsticks only: the port never calls them; the add
-   variants have none) and the least time the card could take.
+   variants and the quantizers have none) and the least time the card
+   could take; for the quantizers also the sum over GPT-2's quantized
+   leaves, as one low-bit Adam step launches them, beside its bound.
 4. ``train``: GPT-2 124M at full width and depth (12 layers, 12 heads,
    n_embd 768, vocab 50304, T 1024, bf16, full remat, fused
    cross-entropy, AdamW 3e-4 / 0.1) takes optimizer steps through the
@@ -41,7 +51,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    first loss must be ln(50304) within 0.1, every loss finite, and the
    first loss must match the same step with dense attention and the
    plain LayerNorm.
-5. ``train_llama_lora``: LoRA fine-tuning of Llama-2-7B at full width
+5. ``train_low_bit``: the same GPT-2 run with ``--optimizer adam8bit``
+   and then ``--optimizer adam4bit`` (4 steps each), the counters zeroed
+   just before each run and read just after. Every loss finite, the
+   first loss equal to phase ``train``'s within LOSS_TOL, the last below
+   the first, the quantization kernels launched for both moments of
+   every quantized leaf each step (and at init), the state's bytes at
+   most 0.252 (int8) and 0.127 (int4) of f32 moments, and a rerun with
+   the plain quantizers (``--quant plain``) within 1e-3 at every step.
+6. ``train_llama_lora``: LoRA fine-tuning of Llama-2-7B at full width
    and depth (32 layers, 32 heads, n_embd 4096, head_dim 128, SwiGLU
    11008, vocab 32000, T 4096, bf16, full remat; rank 8, AdamW 1e-3)
    through the LoRA example's ``run()`` at batch 2 for 4 steps, the
@@ -58,6 +76,7 @@ or without the package beside it, it exits non-zero before any result.
 
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import math
@@ -68,7 +87,9 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("card", "kernels", "times", "train", "train_llama_lora")
+PHASES = (
+    "card", "kernels", "times", "train", "train_low_bit", "train_llama_lora",
+)
 
 # Flash attention's bf16 outputs, compared element by element:
 #   |kernel - plain| <= RTOL * |plain| + ATOL * max(row_rms, rms / 16)
@@ -106,8 +127,20 @@ PARAM_GRAD_TOL = 1e-4
 # parity limits hold the kernels themselves.
 LOSS_TOL = 2e-2
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3.
+# The low-bit run's losses against the plain quantizers' at every step.
+# The kernels equal the plain versions bitwise, so the runs are expected
+# to agree exactly; the limit leaves room only for the order of the
+# model's own sums.
+LOW_BIT_LOSS_TOL = 1e-3
+# optimizer_state_bytes actual / f32-equivalent on GPT-2 124M (scales,
+# the step count and the two small f32 leaves count in full on both
+# sides): 0.2507 at int8 and 0.1259 at int4 by count.
+STATE_RATIO_MAX = {"adam8bit": 0.252, "adam4bit": 0.127}
+
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 on
+# the CUDA cores, HBM3.
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 # Each path's attention shape, by head_dim.
@@ -269,7 +302,8 @@ def phase_kernels(res: dict) -> None:
         wrapper_autograd(d)
         free_memory()
     norm_cases(res)
-    log(f"# {_limits()}")
+    quant_cases(res)
+    log(f"# {_limits()}; quantization: bitwise")
 
 
 def flash_cases(res: dict, d: int) -> None:
@@ -563,6 +597,166 @@ def wrong_norm_fails(x, r, g, b, dout, ref) -> None:
     )
 
 
+# Quantization variants of the low-bit Adam path: label, bits, signed.
+QUANT_VARIANTS = (
+    ("int8", 8, True), ("int4_signed", 4, True), ("int4_unsigned", 4, False),
+)
+# name, values (None: GPT-2's wte, the path's largest leaf), kind
+QUANT_CASES = [
+    ("wte", None, "normal"),
+    ("ragged_1000x1024+77", 1000 * 1024 + 77, "normal"),
+    ("zero_block", 1024, "zeros"),
+    ("one_nonzero", 1024, "one_nonzero"),
+    ("lognormal_1e-30_1e4", 256 * 1024, "lognormal"),
+]
+
+
+@functools.lru_cache(maxsize=None)
+def gpt2_quantized_leaves() -> tuple:
+    """(path, values) of each GPT-2 124M leaf that the low-bit Adam
+    quantizes (at least its min_quantize_size values)."""
+    from dlrover_tpu_torch.models import gpt
+    from dlrover_tpu_torch.optim.low_bit import LowBitAdam
+
+    params = gpt.init_params(gpt.GPTConfig.gpt2(), device="cpu")
+    min_size = LowBitAdam().min_quantize_size
+    out = []
+
+    def walk(tree, prefix):
+        for key in sorted(tree):
+            value = tree[key]
+            if isinstance(value, dict):
+                walk(value, f"{prefix}{key}/")
+            elif value.numel() >= min_size:
+                out.append((f"{prefix}{key}", value.numel()))
+
+    walk(params, "")
+    return tuple(out)
+
+
+def _quant_values(kind: str, n: int, seed: int):
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    if kind == "normal":
+        return torch.randn(n, generator=gen, device="cuda")
+    x = torch.zeros(n, device="cuda")
+    if kind == "one_nonzero":
+        x[n // 3] = -2.5
+    elif kind == "lognormal":
+        # each block's magnitudes span 4 decades around a centre drawn
+        # from 1e-28 .. 1e2, so values reach from 1e-30 (blocks whose
+        # scale falls below the 1e-30 floor) to 1e4
+        blocks = n // 1024
+        centre = torch.empty((blocks, 1), device="cuda").uniform_(
+            math.log(1e-28), math.log(1e2), generator=gen
+        )
+        spread = torch.empty((blocks, 1024), device="cuda").uniform_(
+            -math.log(100.0), math.log(100.0), generator=gen
+        )
+        sign = torch.randint(
+            0, 2, (blocks, 1024), generator=gen, device="cuda"
+        ) * 2 - 1
+        x = (sign * torch.exp(centre + spread)).reshape(-1)
+    return x
+
+
+def _quant_outputs(x, bits, signed, kernel: bool):
+    """(codes, scales, dequantized values) of x through the kernels or
+    the plain versions (called directly: the dispatch does not apply)."""
+    import torch
+
+    from dlrover_tpu_torch.ops import quantization as Q
+
+    shape = tuple(x.shape)
+    if kernel:
+        q, s, _ = Q._quantize_cuda(x, Q.KERNEL_BLOCK, bits, signed)
+        d = Q._dequantize_cuda(q, s, shape, bits, signed, torch.float32)
+    elif bits == 8:
+        q, s, _ = Q.quantize_blockwise_plain(x)
+        d = Q.dequantize_blockwise_plain(q, s, shape)
+    else:
+        q, s, _ = Q.quantize_blockwise_4bit_plain(x, signed=signed)
+        d = Q.dequantize_blockwise_4bit_plain(q, s, shape, signed)
+    return q, s, d
+
+
+def _bitwise(got, ref):
+    """(elements whose bits differ, or -1 on a shape or dtype mismatch;
+    max abs difference)."""
+    import torch
+
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        return -1, math.inf
+    if got.is_floating_point():
+        differ = got.view(torch.int32) != ref.view(torch.int32)
+    else:
+        differ = got != ref
+    diff = (got.float() - ref.float()).abs()
+    worst = diff.max().item() if diff.numel() else 0.0
+    return int(differ.sum().item()), worst
+
+
+def quant_cases(res: dict) -> None:
+    import torch
+
+    wte = dict(gpt2_quantized_leaves())["wte"]
+    for i, (name, n, kind) in enumerate(QUANT_CASES):
+        n = n or wte
+        x = _quant_values(kind, n, 500 + i)
+        for label, bits, signed in QUANT_VARIANTS:
+            ref = _quant_outputs(x, bits, signed, kernel=False)
+            got = _quant_outputs(x, bits, signed, kernel=True)
+            torch.cuda.synchronize()
+            errs = {
+                key: _bitwise(g, r)
+                for key, g, r in zip(("codes", "scales", "values"), got, ref)
+            }
+            log(
+                f"# parity quant {name} {label} (n={n}): " + " | ".join(
+                    f"{k} mismatches {m} abs {a:.3e}"
+                    for k, (m, a) in errs.items()
+                )
+            )
+            check(
+                all(m == 0 for m, _ in errs.values()),
+                f"quantization kernels disagree with their plain versions "
+                f"on {name} {label}",
+            )
+            if name == "wte":
+                res["max_abs_err"][f"quant_{label}"] = max(
+                    errs["codes"][1], errs["scales"][1]
+                )
+                res["max_abs_err"][f"dequant_{label}"] = errs["values"][1]
+                if label == "int4_signed":
+                    adjacent_pairs_fail(got, ref)
+            del ref, got
+        del x
+    free_memory()
+
+
+def adjacent_pairs_fail(got, ref) -> None:
+    """The comparison must see a wrong layout: the kernel's packed int4
+    read back as adjacent pairs (byte i holding elements 2i and 2i + 1)
+    and held to the plain dequantized values."""
+    import torch
+
+    q, s, _ = got
+    p = q.to(torch.int32)
+    pairs = torch.stack([(p & 15) - 8, ((p >> 4) & 15) - 8], dim=2)
+    wrong = (pairs.reshape(q.shape[0], -1).float() * s).reshape(-1)
+    wrong = wrong[: ref[2].numel()].reshape(ref[2].shape)
+    mismatches, abs_err = _bitwise(wrong, ref[2])
+    log(
+        f"# wrong int4 layout (adjacent pairs, must fail): values "
+        f"mismatches {mismatches} of {wrong.numel()} abs {abs_err:.3e}"
+    )
+    check(
+        mismatches > 0,
+        "the quantization comparison passes the adjacent-pair layout",
+    )
+
+
 # ---------------------------------------------------------------------------
 # phase 3: times
 # ---------------------------------------------------------------------------
@@ -586,9 +780,9 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def _bound(nbytes, flops):
+def _bound(nbytes, flops, peak_flops=PEAK_BF16_FLOPS):
     """Least time (ms) and what bounds it."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_BF16_FLOPS
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak_flops
     return 1e3 * max(t_bytes, t_ops), (
         "bytes" if t_bytes >= t_ops else "operations"
     )
@@ -739,12 +933,133 @@ def norm_times(path: str) -> dict:
     return times
 
 
+def quant_bounds(n: int) -> dict:
+    """Least times (ms) of each quantization kernel on n f32 values in
+    1024-value blocks: quantize reads the values and writes the codes
+    (1 byte a value at int8, half a byte at int4) and one f32 scale a
+    block, dequantize the reverse; ~8 f32 operations a value to
+    quantize, 2 to dequantize, over the f32 rate. Bytes bound them."""
+    rows = -(-n // 1024)
+    out = {}
+    for key, code_bytes in (("8", rows * 1024), ("4", rows * 512)):
+        moved = 4 * n + code_bytes + 4 * rows
+        out[f"q{key}"] = _bound(moved, 8 * n, PEAK_F32_FLOPS)
+        out[f"dq{key}"] = _bound(moved, 2 * n, PEAK_F32_FLOPS)
+    return out
+
+
+def _quant_kernels(x) -> dict:
+    """key -> (kernel call, plain call) for the six kernel variants on
+    x (the dequantize calls on x's own codes)."""
+    import torch
+
+    from dlrover_tpu_torch.ops import quantization as Q
+
+    shape, f32, blk = tuple(x.shape), torch.float32, Q.KERNEL_BLOCK
+    calls = {}
+    for key, bits, signed in (
+        ("8", 8, True), ("4s", 4, True), ("4u", 4, False),
+    ):
+        q, s, _ = Q._quantize_cuda(x, blk, bits, signed)
+        if bits == 8:
+            plain_q = functools.partial(Q.quantize_blockwise_plain, x)
+            plain_dq = functools.partial(
+                Q.dequantize_blockwise_plain, q, s, shape
+            )
+        else:
+            plain_q = functools.partial(
+                Q.quantize_blockwise_4bit_plain, x, blk, signed
+            )
+            plain_dq = functools.partial(
+                Q.dequantize_blockwise_4bit_plain, q, s, shape, signed
+            )
+        calls[f"q{key}"] = (
+            functools.partial(Q._quantize_cuda, x, blk, bits, signed), plain_q,
+        )
+        calls[f"dq{key}"] = (
+            functools.partial(
+                Q._dequantize_cuda, q, s, shape, bits, signed, f32
+            ),
+            plain_dq,
+        )
+    return calls
+
+
+def quant_times() -> dict:
+    """Each variant's median time at GPT-2's wte beside its plain
+    version and its bound (q4 / dq4: the mean of the signed and unsigned
+    variants, which a 4-bit step launches equally often), then one
+    low-bit Adam step's launches over GPT-2's quantized leaves (quantize
+    or dequantize of m and sqrt v for every leaf), back to back, beside
+    their bound."""
+    import torch
+
+    leaves = gpt2_quantized_leaves()
+    n = dict(leaves)["wte"]
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    x = torch.randn(n, generator=gen, device="cuda")
+    bounds = quant_bounds(n)
+    times = {}
+    for key, (kernel, plain) in _quant_kernels(x).items():
+        times[key] = median_ms(kernel)
+        times[f"{key}_plain"] = median_ms(plain, reps=5)
+        times[f"{key}_library"] = None  # no single PyTorch call does it
+        times[f"{key}_bound"], times[f"{key}_bound_by"] = (
+            bounds[key.rstrip("su")]
+        )
+    for key in ("q4", "dq4"):
+        for suffix in ("", "_plain", "_bound"):
+            times[f"{key}{suffix}"] = (
+                times[f"{key}s{suffix}"] + times[f"{key}u{suffix}"]
+            ) / 2
+        times[f"{key}_bound_by"] = times[f"{key}s_bound_by"]
+        times[f"{key}_library"] = None
+    del x
+    # one step's launches back to back: m and sqrt(v) of every leaf
+    calls = [
+        _quant_kernels(torch.randn(n_leaf, generator=gen, device="cuda"))
+        for _, n_leaf in leaves
+    ]
+
+    def step(*keys):
+        return median_ms(lambda: [c[k][0]() for c in calls for k in keys])
+
+    def bound(key):
+        return 2 * sum(quant_bounds(n_leaf)[key][0] for _, n_leaf in leaves)
+
+    times["step"] = {
+        "adam8bit_quantize": step("q8", "q8"),
+        "adam8bit_dequantize": step("dq8", "dq8"),
+        "adam4bit_quantize": step("q4s", "q4u"),
+        "adam4bit_dequantize": step("dq4s", "dq4u"),
+        "adam8bit_quantize_bound": bound("q8"),
+        "adam8bit_dequantize_bound": bound("dq8"),
+        "adam4bit_quantize_bound": bound("q4"),
+        "adam4bit_dequantize_bound": bound("dq4"),
+        "leaves": len(leaves),
+        "values": sum(n_leaf for _, n_leaf in leaves),
+    }
+    del calls
+    log(
+        f"# times quant wte (ms, median, n={n} f32, block 1024): "
+        + json.dumps({k: v for k, v in times.items() if k != "step"})
+    )
+    log(
+        f"# times quant gpt2 step (ms, median of a step's launches back "
+        f"to back: m and sqrt v of {len(leaves)} leaves): "
+        + json.dumps(times["step"])
+    )
+    free_memory()
+    return times
+
+
 def phase_times(res: dict) -> None:
     res["times"] = {
         "flash64": flash_times(64),
         "flash128": flash_times(128),
         "norm_gpt2": norm_times("gpt2"),
         "norm_llama": norm_times("llama"),
+        "quant": quant_times(),
     }
 
 
@@ -758,10 +1073,12 @@ def reset_counts() -> None:
 
     from dlrover_tpu_torch.ops import flash_attention as fa
     from dlrover_tpu_torch.ops import layer_norm as ln
+    from dlrover_tpu_torch.ops import quantization as qz
 
     torch.cuda.synchronize()
     fa.reset_launch_counts()
     ln.reset_launch_counts()
+    qz.reset_launch_counts()
 
 
 def read_counts() -> dict:
@@ -769,25 +1086,31 @@ def read_counts() -> dict:
 
     from dlrover_tpu_torch.ops import flash_attention as fa
     from dlrover_tpu_torch.ops import layer_norm as ln
+    from dlrover_tpu_torch.ops import quantization as qz
 
     torch.cuda.synchronize()
     return {
         "flash_fwd": fa.FWD_LAUNCHES, "flash_bwd": fa.BWD_LAUNCHES,
         "norm_fwd": ln.FWD_LAUNCHES, "norm_bwd": ln.BWD_LAUNCHES,
+        "quant": qz.QUANT_LAUNCHES, "dequant": qz.DEQUANT_LAUNCHES,
     }
+
+
+GPT2_ARGS = [
+    "--model", "gpt2", "--global-batch-size", "16",
+    "--micro-batch-size", "8", "--seed", "0",
+]
 
 
 def phase_train(res: dict) -> None:
     from dlrover_tpu_torch.examples.nanogpt import train
 
-    common = [
-        "--model", "gpt2", "--global-batch-size", "16",
-        "--micro-batch-size", "8", "--seed", "0",
-    ]
+    common = GPT2_ARGS
     steps = 4
     reset_counts()
     run = train.run(train.parse_args(common + ["--steps", str(steps)]))
     launches = read_counts()
+    del run["opt_state"]
     res["launches_gpt2"] = launches
     losses = run["losses"]
     log(
@@ -815,6 +1138,7 @@ def phase_train(res: dict) -> None:
     ref = train.run(train.parse_args(
         common + ["--steps", "1", "--attention", "dense", "--norm", "plain"]
     ))
+    del ref["opt_state"]
     diff = abs(ref["losses"][0] - losses[0])
     log(
         f"# train gpt2 dense attention, plain norm: first loss "
@@ -826,7 +1150,74 @@ def phase_train(res: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the Llama-2-7B LoRA path
+# phase 5: GPT-2 with the low-bit optimizers
+# ---------------------------------------------------------------------------
+
+
+def phase_train_low_bit(res: dict) -> None:
+    from dlrover_tpu_torch.examples.nanogpt import train
+    from dlrover_tpu_torch.optim.low_bit import optimizer_state_bytes
+
+    steps = 4
+    adamw = res["train"]["losses"]
+    per_step = 2 * len(gpt2_quantized_leaves())  # m and sqrt(v) a leaf
+    res["low_bit"] = {}
+    for name in ("adam8bit", "adam4bit"):
+        args = GPT2_ARGS + ["--steps", str(steps), "--optimizer", name]
+        free_memory()
+        reset_counts()
+        run = train.run(train.parse_args(args))
+        launches = read_counts()
+        actual, f32_equiv = optimizer_state_bytes(run.pop("opt_state"))
+        ratio = actual / f32_equiv
+        losses = run["losses"]
+        log(
+            f"# train gpt2 {name}: losses {losses} | step_s "
+            f"{run['step_s']} | tokens/s {run['tokens_per_s']:.1f} (steps "
+            f"2..{steps}) | launches {launches} | peak_mem_GiB "
+            f"{run['peak_mem_gib']:.2f} | state bytes {actual:,} of "
+            f"{f32_equiv:,} f32-equivalent ({ratio:.4f}) | loss - adamw "
+            f"{[a - b for a, b in zip(losses, adamw)]}"
+        )
+        check(
+            all(math.isfinite(x) for x in losses), f"non-finite loss {losses}"
+        )
+        check(
+            abs(losses[0] - adamw[0]) <= LOSS_TOL,
+            f"{name}'s first loss {losses[0]} is not phase train's "
+            f"{adamw[0]} within {LOSS_TOL}",
+        )
+        check(losses[-1] < losses[0], f"{name}'s loss did not fall: {losses}")
+        want = {"quant": per_step * (steps + 1), "dequant": per_step * steps}
+        check(
+            all(launches[k] >= n for k, n in want.items()),
+            f"quantization launches {launches} below {want}: {per_step} "
+            f"a step over {steps} steps, and {per_step} at init",
+        )
+        check(
+            ratio <= STATE_RATIO_MAX[name],
+            f"{name}'s state is {ratio:.4f} of f32 moments, above "
+            f"{STATE_RATIO_MAX[name]}",
+        )
+        free_memory()
+        plain = train.run(train.parse_args(args + ["--quant", "plain"]))
+        del plain["opt_state"]
+        diffs = [abs(a - b) for a, b in zip(plain["losses"], losses)]
+        log(
+            f"# train gpt2 {name} plain quantizers: losses "
+            f"{plain['losses']} | |diff| {diffs} (tol {LOW_BIT_LOSS_TOL})"
+        )
+        check(
+            len(diffs) == steps and max(diffs) <= LOW_BIT_LOSS_TOL,
+            f"{name}'s losses differ from the plain quantizers' run",
+        )
+        run.update(launches=launches, state_bytes=[actual, f32_equiv])
+        res["low_bit"][name] = run
+    free_memory()
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the Llama-2-7B LoRA path
 # ---------------------------------------------------------------------------
 
 
@@ -932,6 +1323,25 @@ def kernels_line(res: dict) -> dict:
             f"layer_norm_bwd {label} ({path})", norm_src,
             "dlrover_tpu/ops/layer_norm.py:88", launches["norm_bwd"],
             errs[f"norm_bwd_{path}"], t, "bwd",
+        )
+    quant_src = "dlrover_tpu_torch/csrc/quantization.cu"
+    q_file = "dlrover_tpu/ops/quantization.py"
+    # name, optimizer, counter, times key, error keys, TPU kernel line
+    for name, opt, count, key, err_keys, line in (
+        ("quantize int8", "adam8bit", "quant", "q8", ["quant_int8"], 113),
+        ("dequantize int8", "adam8bit", "dequant", "dq8",
+         ["dequant_int8"], 123),
+        ("quantize int4", "adam4bit", "quant", "q4",
+         ["quant_int4_signed", "quant_int4_unsigned"], 162),
+        ("dequantize int4", "adam4bit", "dequant", "dq4",
+         ["dequant_int4_signed", "dequant_int4_unsigned"], 179),
+    ):
+        # int4 times: the mean of the signed (m) and unsigned (sqrt v)
+        # variants, which each step launches equally often
+        entry(
+            f"{name} wte ({opt})", quant_src, f"{q_file}:{line}",
+            res["low_bit"][opt]["launches"][count],
+            max(errs[k] for k in err_keys), times["quant"], key,
         )
     return {"kernels": entries}
 

@@ -11,7 +11,11 @@ Zipfian stream with bigram mixing, made from a seed, so the run needs
 no download), and prints each step's loss, time and tokens per second.
 It runs on the card unless ``--device cpu`` is given; ``--attention
 dense`` and ``--norm plain`` take the plain attention and LayerNorm
-instead of the kernels.
+instead of the kernels. ``--optimizer`` picks the JAX example's
+optimizers by name (``accelerate/api.make_optimizer``: agd, adam8bit,
+adam4bit, sgd, at ``--lr``); the low-bit ones quantize their moments
+through the quantization kernels, or through the plain quantizers with
+``--quant plain``.
 Elastic launch, flash checkpoint and ``auto_accelerate`` arrive with
 later slices of the port (ROADMAP queue 1).
 """
@@ -28,8 +32,10 @@ import time
 import numpy as np
 import torch
 
+from dlrover_tpu_torch.accelerate.api import OPTIMIZERS, make_optimizer
 from dlrover_tpu_torch.models import gpt
 from dlrover_tpu_torch.optim.adamw import AdamW
+from dlrover_tpu_torch.optim.low_bit import LowBitAdam
 from dlrover_tpu_torch.trainer.async_metrics import materialize
 from dlrover_tpu_torch.trainer.elastic_trainer import (
     ElasticDataLoader,
@@ -54,6 +60,14 @@ def parse_args(argv=None):
     p.add_argument("--norm", default="auto", choices=["auto", "plain"],
                    help="auto: fused LayerNorm kernels on CUDA; plain: "
                    "the plain LayerNorm")
+    p.add_argument("--optimizer", default="adamw", choices=OPTIMIZERS,
+                   help="adamw: AdamW(3e-4, weight decay 0.1) as the JAX "
+                   "bench; others by name at --lr")
+    p.add_argument("--lr", type=float, default=3e-4,
+                   help="learning rate of the optimizers other than adamw")
+    p.add_argument("--quant", default="auto", choices=["auto", "plain"],
+                   help="auto: quantization kernels on CUDA for adam8bit "
+                   "and adam4bit; plain: the plain quantizers")
     p.add_argument("--device", default=None,
                    help="default cuda; cpu only when asked for")
     p.add_argument("--seed", type=int, default=0)
@@ -79,6 +93,24 @@ def model_config(args) -> gpt.GPTConfig:
     if args.norm == "plain":
         cfg = dataclasses.replace(cfg, use_fused_norm=False)
     return cfg
+
+
+def make_run_optimizer(args):
+    """AdamW(3e-4, decay 0.1) as the JAX bench for ``adamw``, else
+    ``make_optimizer``'s at ``--lr``; ``--quant plain`` gives the
+    low-bit optimizers the plain quantizers."""
+    if args.optimizer == "adamw":
+        optimizer = AdamW(3e-4, weight_decay=0.1)  # as the JAX bench
+    else:
+        optimizer = make_optimizer(args.optimizer, args.lr)
+    if args.quant == "plain":
+        if not isinstance(optimizer, LowBitAdam):
+            raise ValueError(
+                f"--quant plain applies to adam8bit and adam4bit, not "
+                f"{args.optimizer}"
+            )
+        optimizer = dataclasses.replace(optimizer, quant="plain")
+    return optimizer
 
 
 def synthetic_tokens(n_tokens: int, vocab: int, seed: int = 0):
@@ -109,12 +141,13 @@ def run(args) -> dict:
     """Train for ``args.steps`` optimizer steps. Returns the per-step
     losses and seconds, tokens per second over the steps after the
     first (which pays for cuBLAS and allocator warm-up), the
-    accumulation factor and the peak device memory."""
+    accumulation factor, the peak device memory and the final optimizer
+    state."""
     cfg = model_config(args)
     gen = torch.Generator().manual_seed(args.seed)
     params = gpt.init_params(cfg, generator=gen, device=args.device)
     device = params["wte"].device
-    optimizer = AdamW(3e-4, weight_decay=0.1)  # as the JAX bench
+    optimizer = make_run_optimizer(args)
     opt_state = optimizer.init(params)
     loss = functools.partial(gpt.loss_fn_fused, cfg=cfg)
     trainer = ElasticTrainer(
@@ -138,7 +171,8 @@ def run(args) -> dict:
     print(
         f"model {name}: {gpt.num_params(params) / 1e6:.1f}M params, "
         f"{cfg.n_layer} layers, T {cfg.block_size}, {cfg.dtype}, "
-        f"remat {cfg.remat}, global batch {trainer.samples_per_step} = "
+        f"remat {cfg.remat}, optimizer {args.optimizer}, global batch "
+        f"{trainer.samples_per_step} = "
         f"micro {args.micro_batch_size} x accum {trainer.accum_steps}, "
         f"device {device}",
         flush=True,
@@ -182,6 +216,7 @@ def run(args) -> dict:
         "accum_steps": trainer.accum_steps,
         "peak_mem_gib": peak,
         "finite": all(math.isfinite(x) for x in losses),
+        "opt_state": opt_state,
     }
 
 

@@ -107,3 +107,11 @@ def _weak(x: float, like: torch.Tensor) -> float:
 @functools.lru_cache(maxsize=None)
 def _rounded(x: float, dtype: torch.dtype) -> float:
     return torch.tensor(x, dtype=dtype).item()
+
+
+def _true_div(x: torch.Tensor, value: float) -> torch.Tensor:
+    """x / value by true division, as JAX divides by a traced scalar:
+    PyTorch's CUDA kernels turn a Python-scalar divisor into a multiply
+    by its reciprocal, so the divisor goes in as a 0-dim tensor (a fill
+    kernel, no host sync)."""
+    return x / torch.full((), value, dtype=x.dtype, device=x.device)

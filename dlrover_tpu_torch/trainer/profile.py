@@ -30,6 +30,8 @@ def profiler(path: str):
 KERNEL_FAMILIES = (
     ("flash", ("flash_fwd_kernel", "flash_bwd_")),
     ("norm", ("layer_norm_fwd_kernel", "layer_norm_bwd_kernel")),
+    # quantize_kernel, dequantize_kernel and their nibble variants
+    ("quant", ("quantize_kernel", "quantize_nibble_kernel")),
     ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),
 )
 
@@ -44,7 +46,7 @@ def kernel_family(name: str) -> str:
 
 def write_profile(prof, step_s: float, path: str) -> None:
     """Device time by kernel for the profiled step, and by family
-    (flash, norm, gemm, other). The profiler slows the host side, so
+    (flash, norm, quant, gemm, other). The profiler slows the host side, so
     the step's wall time here is longer than an unprofiled step's; the
     kernels' times are their own."""
     kernels = [

@@ -24,6 +24,7 @@ import dlrover_tpu_torch
 from dlrover_tpu_torch.ops import _build
 from dlrover_tpu_torch.ops import flash_attention as tfa
 from dlrover_tpu_torch.ops import layer_norm as tln
+from dlrover_tpu_torch.ops import quantization as tq
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PKG = pathlib.Path(dlrover_tpu_torch.__file__).parent
@@ -99,6 +100,7 @@ def test_entry_points_without_device_raise(no_gpu):
     from dlrover_tpu_torch.examples.nanogpt import train
     from dlrover_tpu_torch.models import convert, gpt, llama
     from dlrover_tpu_torch.optim.adamw import AdamW
+    from dlrover_tpu_torch.optim.low_bit import state_from_jax
     from dlrover_tpu_torch.trainer.elastic_trainer import ElasticTrainer
 
     tiny = gpt.GPTConfig(
@@ -113,6 +115,9 @@ def test_entry_points_without_device_raise(no_gpu):
         lambda: train.main(["--smoke", "--steps", "1"]),
         lambda: llama.init_params(llama.LlamaConfig.tiny()),
         lambda: lora_train.main(["--preset", "tiny", "--steps", "1"]),
+        lambda: train.main(["--smoke", "--steps", "1", "--optimizer",
+                            "adam8bit"]),
+        lambda: state_from_jax(({"count": 0, "mu": {}, "nu": {}},)),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
@@ -143,7 +148,7 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setattr(_build, "build_dir", lambda: tmp_path / "b")
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        _build.build(["flash_attention", "layer_norm"])
+        _build.build(["flash_attention", "layer_norm", "quantization"])
     # nvcc is looked up before the build directory is made
     assert not (tmp_path / "b").exists()
     lib = _build._lib_path("flash_attention")
@@ -179,12 +184,29 @@ def test_wrappers_send_cuda_tensors_to_the_kernels(monkeypatch):
     )
     monkeypatch.setattr(tln, "layer_norm_fwd_ref", plain)
     monkeypatch.setattr(tln, "layer_norm_bwd_ref", plain)
+    monkeypatch.setattr(
+        tq, "_quantize_cuda",
+        lambda x, b, bits, s: calls.append(f"q{bits}{s:d}") or "q",
+    )
+    monkeypatch.setattr(
+        tq, "_dequantize_cuda",
+        lambda q, sc, sh, bits, s, dt: calls.append(f"dq{bits}{s:d}") or "d",
+    )
+    for name in ("quantize_blockwise_plain", "dequantize_blockwise_plain",
+                 "quantize_blockwise_4bit_plain",
+                 "dequantize_blockwise_4bit_plain"):
+        monkeypatch.setattr(tq, name, plain)
     x = _CudaLike()
     assert tfa._fwd(x, x, x, True, 1.0, None, 0) == ("o", "lse")
     assert tfa._bwd(x, x, x, x, x, x, True, 1.0, None, 0) == (1, 2, 3)
     assert tln._fwd(x, None, x, None, 1e-5, False) == "nf"
     assert tln._bwd(x, x, x, x, x, True, False) == "nb"
-    assert calls == ["fwd", "bwd", "norm_fwd", "norm_bwd"]
+    assert tq.quantize_blockwise(x) == "q"
+    assert tq.dequantize_blockwise(x, x, (4,)) == "d"
+    assert tq.quantize_blockwise_4bit(x, signed=False) == "q"
+    assert tq.dequantize_blockwise_4bit(x, x, (4,), signed=False) == "d"
+    assert calls == ["fwd", "bwd", "norm_fwd", "norm_bwd",
+                     "q81", "dq81", "q40", "dq40"]
 
 
 def test_kernel_input_checks_raise():
@@ -203,6 +225,30 @@ def test_kernel_input_checks_raise():
         tfa._check_kv(q, q[:, :, :2], q[:, :, :2])
     with pytest.raises(ValueError, match="share q's"):
         tfa._check_kv(q, q, q[:, :4])
+
+
+def test_quantization_kernel_checks_raise():
+    """The quantization wrappers raise on what the kernels do not take
+    (checked before anything touches the card)."""
+    with pytest.raises(TypeError, match="float32 values"):
+        tq._kernel_values(torch.zeros(8, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="block_size 1024"):
+        tq._quantize_cuda(torch.zeros(8), 256, 8, True)
+    with pytest.raises(TypeError, match="write float32"):
+        tq._dequantize_cuda(None, None, (8,), 8, True, torch.bfloat16)
+    codes = torch.zeros(2, 1024, dtype=torch.int8)
+    with pytest.raises(ValueError, match="uint8 codes"):
+        tq._dequantize_cuda(codes, None, (8,), 4, True, torch.float32)
+    with pytest.raises(ValueError, match=r"scales must be float32 \[2, 1\]"):
+        tq._dequantize_cuda(codes, torch.zeros(2), (8,), 8, True,
+                            torch.float32)
+    with pytest.raises(ValueError, match="more than the 2 blocks"):
+        tq._dequantize_cuda(codes, torch.zeros(2, 1), (2049,), 8, True,
+                            torch.float32)
+    x = torch.zeros(9)
+    assert tq._kernel_values(x).data_ptr() == x.data_ptr()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tq._kernel_values(x[1:])
 
 
 def test_build_dir_is_ignored_by_git():
