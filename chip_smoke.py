@@ -15,11 +15,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    Llama-2-7B: batch 2, T 4096, 32 heads, head_dim 128, scale
    1/sqrt(128) passed to the kernel; causal, bf16) and the variants
    (full attention, ragged T 1000, window 256, rectangular with
-   ``q_offset``, lse with an lse cotangent, small and ragged shapes);
+   ``q_offset`` 768 and with ``q_offset`` 700, which is not a multiple
+   of the kernels' 128-row tiles, a window over T 1088, which is not
+   either, lse with an lse cotangent, small and ragged shapes);
    ``flash_attention``'s output and gradient through autograd on
    strided views of a fused qkv tensor at each main shape, against
-   dense f32 attention; and a mask that drops keys of the last rows
-   must fail the same limits.
+   dense f32 attention; the backward's dq, dk and dv bitwise equal on
+   two calls at each main shape (the kernels use no atomics); and a
+   mask that drops keys of the last rows must fail the same limits.
    Fused norms (K3, K4): LayerNorm with bias at the GPT-2 shape (8192
    rows x 768), RMSNorm at the Llama shape (8192 x 4096), a ragged
    1000 x 128 LayerNorm and a 1024 x 8192 LayerNorm (the widest row the
@@ -276,6 +279,8 @@ CASES = [
     ("ragged_t1000", 1000, 1000, True, None, 0, 0.125, False),
     ("window256", 1024, 1024, True, 256, 0, 0.125, False),
     ("rect_q_offset", 256, 1024, True, None, 768, 0.125, False),
+    ("rect_q_offset700_tq324", 324, 1024, True, None, 700, 0.125, False),
+    ("window200_t1088", 1088, 1088, True, 200, 0, 0.125, True),
     ("lse_cotangent", 1024, 1024, True, None, 0, None, True),
     ("tiny_t65", 65, 65, True, None, 0, 0.125, False),
     ("window1_t200", 200, 200, True, 1, 0, 0.125, True),
@@ -360,6 +365,14 @@ def flash_cases(res: dict, d: int) -> None:
         if is_main:
             res["max_abs_err"][f"fwd{d}"] = max(o_err[0], lse_abs)
             res["max_abs_err"][f"bwd{d}"] = max(e[0] for e in g_errs)
+            again = fa._bwd_cuda(
+                q, k, v, lse_ref, do, delta, causal, scale, window, q_off
+            )
+            torch.cuda.synchronize()
+            same = [torch.equal(a, g) for a, g in zip(again, grads)]
+            log(f"# repeatable D{d} backward (dq, dk, dv bitwise): {same}")
+            check(all(same), f"the backward is not repeatable at head_dim {d}")
+            del again
             wrong_mask_fails(
                 q, k, v, do, o_ref, lse_ref, delta, grads_ref, scale
             )

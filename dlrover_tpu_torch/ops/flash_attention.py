@@ -148,8 +148,9 @@ def flash_attention_bwd_ref(
 
 
 def _kernel_input(x: torch.Tensor, name: str) -> torch.Tensor:
-    """Check a [B, T, H, D] input for the kernel; re-lay it out only when
-    its strides cannot be read 16 bytes at a time."""
+    """Check a [B, T, H, D] input for the kernel, which reads it with TMA
+    through its strides: bf16, head_dim in HEAD_DIMS, unit stride on the
+    head dim, and a base and strides that are multiples of 16 bytes."""
     if x.dtype != torch.bfloat16:
         raise TypeError(
             f"the CUDA flash-attention kernel takes bfloat16; {name} is "
@@ -160,12 +161,21 @@ def _kernel_input(x: torch.Tensor, name: str) -> torch.Tensor:
             f"the CUDA flash-attention kernel takes [B, T, H, D] with "
             f"head_dim D in {HEAD_DIMS}; {name} has shape {tuple(x.shape)}"
         )
-    if (
-        x.stride(-1) != 1
-        or any(s % 8 for s in x.stride()[:3])
-        or x.data_ptr() % 16
-    ):
-        x = x.contiguous()
+    if x.stride(-1) != 1:
+        raise ValueError(
+            f"{name} must have unit stride on its head dim (strides "
+            f"{x.stride()})"
+        )
+    if x.data_ptr() % 16:
+        raise ValueError(
+            f"{name}'s base address is not 16-byte aligned, as the "
+            "kernel's TMA loads need"
+        )
+    if any(s % 8 for s in _strides(x)):
+        raise ValueError(
+            f"{name}'s strides {x.stride()} are not multiples of 16 bytes, "
+            "as the kernel's TMA loads need"
+        )
     return x
 
 
@@ -182,7 +192,11 @@ def _check_kv(q, k, v) -> None:
 
 
 def _strides(x: torch.Tensor):
-    return x.stride(0), x.stride(1), x.stride(2)
+    """Element strides of B, T and H. A dim of size 1 is never stepped
+    over, so its stride (which PyTorch leaves arbitrary) is given as 8."""
+    return tuple(
+        x.stride(i) if x.shape[i] > 1 else 8 for i in range(3)
+    )
 
 
 def _mask_args(x, causal, scale, window, q_offset, seq_len):
@@ -220,9 +234,10 @@ def _fwd_cuda(q, k, v, causal, scale, window, q_offset):
 
 def _bwd_cuda(q, k, v, lse, do, delta, causal, scale, window, q_offset):
     global BWD_LAUNCHES
+    # autograd's dO can arrive with any strides
     q, k, v, do = (
         _kernel_input(x, n)
-        for x, n in ((q, "q"), (k, "k"), (v, "v"), (do, "do"))
+        for x, n in ((q, "q"), (k, "k"), (v, "v"), (do.contiguous(), "do"))
     )
     _check_kv(q, k, v)
     if do.shape != q.shape:

@@ -25,6 +25,7 @@ from dlrover_tpu_torch.ops import _build
 from dlrover_tpu_torch.ops import flash_attention as tfa
 from dlrover_tpu_torch.ops import layer_norm as tln
 from dlrover_tpu_torch.ops import quantization as tq
+from dlrover_tpu_torch.tools import flash_ab
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PKG = pathlib.Path(dlrover_tpu_torch.__file__).parent
@@ -227,6 +228,40 @@ def test_kernel_input_checks_raise():
         tfa._check_kv(q, q, q[:, :4])
 
 
+def test_kernel_input_refuses_what_tma_cannot_read():
+    """The kernels read q, k, v and dO with TMA: a base or a stride that
+    is not a multiple of 16 bytes, or a head dim that is not contiguous,
+    is refused with the tensor's name instead of copied."""
+    flat = torch.zeros(1 + 8 * 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="k's base address is not 16-byte"):
+        tfa._kernel_input(flat[1:].view(1, 8, 1, 64), "k")
+    wide = torch.zeros(1, 8, 2, 68, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=r"v's strides .* multiples of 16"):
+        tfa._kernel_input(wide[..., :64], "v")
+    with pytest.raises(ValueError, match="do must have unit stride"):
+        tfa._kernel_input(
+            torch.zeros(1, 8, 64, 2, dtype=torch.bfloat16).transpose(2, 3),
+            "do",
+        )
+
+
+@pytest.mark.parametrize("d", tfa.HEAD_DIMS)
+def test_kernel_input_accepts_views_tma_can_read(d):
+    """The q/k/v views of a fused qkv projection go to the kernel as
+    they are; a dim of size 1 may carry any stride."""
+    b, t, h = 2, 8, 3
+    qkv = torch.zeros(b, t, 3 * h * d, dtype=torch.bfloat16)
+    for part in qkv.split(h * d, dim=-1):
+        x = part.view(b, t, h, d)
+        assert tfa._kernel_input(x, "q") is x
+        assert tfa._strides(x) == (t * 3 * h * d, 3 * h * d, d)
+    odd = torch.zeros(8 * 2 * d, dtype=torch.bfloat16).as_strided(
+        (1, 8, 1, d), (3, 2 * d, 5, 1)
+    )
+    assert tfa._kernel_input(odd, "k") is odd
+    assert tfa._strides(odd) == (8, 2 * d, 8)
+
+
 def test_quantization_kernel_checks_raise():
     """The quantization wrappers raise on what the kernels do not take
     (checked before anything touches the card)."""
@@ -276,4 +311,24 @@ ptxas info    : Used 168 registers, used 1 barriers, 528 bytes cmem[0]
         "flash_fwd_kernel<64>": {"spill_bytes": 32, "registers": 128},
         "layer_norm_bwd_kernel<4,0,1>": {"spill_bytes": 0, "registers": 176},
         "flash_bwd_dq_kernel": {"registers": 168},
+    }
+
+
+def test_sass_counts_reads_tensor_core_and_tma_instructions():
+    sass = """\
+	code for sm_90a
+		Function : _ZN12_GLOBAL__N_116flash_fwd_kernelILi128EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16PfifNS_8MaskArgsE
+	.headerflags	@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0a30*/                   UTMALDG.4D [UR8], [UR4] ;                         /* 0x00000008040075b4 */
+                                                                                     /* 0x0001e20008019000 */
+        /*0a40*/                   WARPGROUP.ARRIVE ;                                /* 0x00000000000079c5 */
+        /*0a50*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR8], RZ, !UPT, gsb0 ; /* 0x01e00000081879f0 */
+        /*0a60*/                   HGMMA.64x128x16.F32.BF16 R24, R180, gdesc[UR16].tnspB, R24, gsb0 ; /* 0x41e00010b4187df0 */
+		Function : _ZN12_GLOBAL__N_119flash_bwd_dq_kernelILi64EEEvPK13__nv_bfloat16
+        /*0100*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;             /* 0x0000000c0804723c */
+        /*0110*/                   HMMA.16816.F32.BF16 R16, R8, R14, R16 ;           /* 0x0000000e0810723c */
+"""
+    assert flash_ab.sass_counts(sass) == {
+        "flash_fwd_kernel<128>": {"HGMMA": 2, "UTMALDG": 1, "HMMA": 0},
+        "flash_bwd_dq_kernel<64>": {"HGMMA": 0, "UTMALDG": 0, "HMMA": 2},
     }
