@@ -25,11 +25,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    mask that drops keys of the last rows must fail the same limits.
    Fused norms (K3, K4): LayerNorm with bias at the GPT-2 shape (8192
    rows x 768), RMSNorm at the Llama shape (8192 x 4096), a ragged
-   1000 x 128 LayerNorm and a 1024 x 8192 LayerNorm (the widest row the
-   kernels take), each plain and with the residual add; every
-   output (out, resid, mu, rstd, dx, dg, db) held to its limit; and the
-   LayerNorm case run through the RMS variant, on rows with a non-zero
-   mean, must fail them.
+   1000 x 128 LayerNorm, a 1024 x 8192 LayerNorm (the widest row the
+   kernels take), LayerNorms at E 1024 and 1032 (each side of the
+   kernels' warp/block width dispatch), one row at E 4096, row counts
+   that are no multiple of the rows a warp or a block takes (8193 x
+   768, 4099 x 4096) and a small RMSNorm, each plain and with the
+   residual add; every output (out, resid, mu, rstd, dx, dg, db) held
+   to its limit; every output bitwise equal on two calls at each main
+   shape; and the LayerNorm case run through the RMS variant, on rows
+   with a non-zero mean, must fail them.
    Blockwise quantization (K5 int8, K6 packed int4, signed and
    unsigned): quantize and dequantize at GPT-2's largest quantized leaf
    (wte, 38,633,472 values), a ragged 1000 x 1024 + 77 values, an
@@ -38,8 +42,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    packed bytes, scales, dequantized values); and the kernel's packed
    int4 read back with the adjacent-pair layout must fail the same
    comparison.
-3. ``times``: each kernel's median time at each path's shape beside its
-   plain version's, the library call that computes the same function
+3. ``times``: each kernel's median time at each path's shape (one call
+   between two events, so it holds host time where the card waits) and
+   its device time by torch.profiler, beside its plain version's, the
+   library call that computes the same function
    (``scaled_dot_product_attention``, ``F.layer_norm``,
    ``F.rms_norm``; yardsticks only: the port never calls them; the add
    variants and the quantizers have none) and the least time the card
@@ -161,6 +167,15 @@ NORM_CASES = list(NORM_MAIN.values()) + [
     # the widest row the kernels take (ops/layer_norm.MAX_WIDTH), in the
     # variant with the most registers a thread (LayerNorm with bias)
     ("max_width_n1024_e8192", 1024, 8192, False, True),
+    # each side of the width dispatch (ops/layer_norm.WARP_MAX_WIDTH: a
+    # warp a row up to it, a block a row above), one row, and row counts
+    # that are no multiple of the rows a warp or a block takes
+    ("warp_widest_n997_e1024", 997, 1024, False, True),
+    ("block_narrowest_n997_e1032", 997, 1032, False, True),
+    ("one_row_n1_e4096", 1, 4096, True, False),
+    ("ragged_n8193_e768", 8193, 768, False, True),
+    ("ragged_n4099_e4096", 4099, 4096, True, False),
+    ("rms_n333_e256", 333, 256, True, False),
 ]
 
 
@@ -490,20 +505,36 @@ def _rel_err(got, ref):
     return diff, (diff / top if top else (0.0 if diff == 0 else math.inf))
 
 
+def _plain_fwd(x, res, g, b, eps, rms):
+    """The plain forward with the kernels' outputs: (out, resid, stats
+    [2, N]: mu, rstd)."""
+    import torch
+
+    from dlrover_tpu_torch.ops import layer_norm as ln
+
+    out, resid, mu, rstd = ln.layer_norm_fwd_ref(x, res, g, b, eps, rms)
+    return out, resid, torch.stack((mu, rstd))
+
+
+def _plain_bwd(dout, y, g, stats, rms, has_bias):
+    from dlrover_tpu_torch.ops import layer_norm as ln
+
+    return ln.layer_norm_bwd_ref(dout, y, g, stats[0], stats[1], rms,
+                                 has_bias)
+
+
 def _norm_outputs(x, res, g, b, dout, rms, run_fwd, run_bwd):
     """Forward and backward outputs of one norm (plain variant, then
     the add variant), through the given forward and backward."""
     outs = {}
     eps = 1e-6 if rms else 1e-5
     for add in (False, True):
-        out, resid, mu, rstd = run_fwd(
-            x, res if add else None, g, b, eps, rms
-        )
+        out, resid, stats = run_fwd(x, res if add else None, g, b, eps, rms)
         y = resid if add else x
-        dx, dg, db = run_bwd(dout, y, g, mu, rstd, rms, b is not None)
+        dx, dg, db = run_bwd(dout, y, g, stats, rms, b is not None)
         tag = "add_" if add else ""
         outs.update({
-            f"{tag}out": out, f"{tag}mu": mu, f"{tag}rstd": rstd,
+            f"{tag}out": out, f"{tag}mu": stats[0], f"{tag}rstd": stats[1],
             f"{tag}dx": dx, f"{tag}dg": dg,
         })
         if add:
@@ -539,15 +570,17 @@ def norm_cases(res: dict) -> None:
         max(c[2] for c in NORM_CASES) == ln.MAX_WIDTH,
         f"no norm case at the kernels' widest row {ln.MAX_WIDTH}",
     )
+    widths = {c[2] for c in NORM_CASES}
+    check(
+        {ln.WARP_MAX_WIDTH, ln.WARP_MAX_WIDTH + 8} <= widths,
+        "no norm case on each side of the kernels' width dispatch",
+    )
     # The plain versions run on the same CUDA tensors: they are called
     # directly, so the wrappers' dispatch does not apply.
     for i, (name, n, e, rms, bias) in enumerate(NORM_CASES):
         x, r, g, b, dout = _norm_inputs(300 + i, n, e)
         b = b if bias else None
-        ref = _norm_outputs(
-            x, r, g, b, dout, rms, ln.layer_norm_fwd_ref,
-            ln.layer_norm_bwd_ref,
-        )
+        ref = _norm_outputs(x, r, g, b, dout, rms, _plain_fwd, _plain_bwd)
         got = _norm_outputs(
             x, r, g, b, dout, rms, ln._fwd_cuda, ln._bwd_cuda
         )
@@ -563,16 +596,27 @@ def norm_cases(res: dict) -> None:
         )
         check(ok, f"norm kernels disagree with their plain versions on {name}")
         for path, main in NORM_MAIN.items():
-            if main[0] == name:
-                fwd_keys = [k for k in errs if k.split("_")[-1] in
-                            ("out", "resid", "mu", "rstd")]
-                bwd_keys = [k for k in errs if k not in fwd_keys]
-                res["max_abs_err"][f"norm_fwd_{path}"] = max(
-                    errs[k][0] for k in fwd_keys
-                )
-                res["max_abs_err"][f"norm_bwd_{path}"] = max(
-                    errs[k][0] for k in bwd_keys
-                )
+            if main[0] != name:
+                continue
+            fwd_keys = [k for k in errs if k.split("_")[-1] in
+                        ("out", "resid", "mu", "rstd")]
+            bwd_keys = [k for k in errs if k not in fwd_keys]
+            res["max_abs_err"][f"norm_fwd_{path}"] = max(
+                errs[k][0] for k in fwd_keys
+            )
+            res["max_abs_err"][f"norm_bwd_{path}"] = max(
+                errs[k][0] for k in bwd_keys
+            )
+            # no atomics: a second call gives the same bits
+            again = _norm_outputs(
+                x, r, g, b, dout, rms, ln._fwd_cuda, ln._bwd_cuda
+            )
+            torch.cuda.synchronize()
+            same = {k: torch.equal(again[k], v) for k, v in got.items()}
+            log(f"# repeatable norm {name} (every output bitwise): {same}")
+            check(all(same.values()),
+                  f"the norm kernels are not repeatable on {name}")
+            del again
         if name == NORM_MAIN["gpt2"][0]:
             wrong_norm_fails(x, r, g, b, dout, ref)
         del x, r, g, b, dout, ref, got
@@ -589,8 +633,8 @@ def wrong_norm_fails(x, r, g, b, dout, ref) -> None:
     def rms_fwd(x, res, g, b, eps, rms):
         return ln._fwd_cuda(x, res, g, b, eps, True)
 
-    def rms_bwd(dout, y, g, mu, rstd, rms, has_bias):
-        return ln._bwd_cuda(dout, y, g, mu, rstd, True, has_bias)
+    def rms_bwd(dout, y, g, stats, rms, has_bias):
+        return ln._bwd_cuda(dout, y, g, stats, True, has_bias)
 
     got = _norm_outputs(x, r, g, b, dout, False, rms_fwd, rms_bwd)
     torch.cuda.synchronize()
@@ -793,6 +837,26 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int = 10) -> float:
+    """Device time (ms) of one call of ``fn``: every kernel it launches,
+    summed, by torch.profiler. ``median_ms`` also holds the host's time
+    where the card waits for the launch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(
+        e.self_device_time_total for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+    )
+    return total / reps / 1e3
+
+
 def _bound(nbytes, flops, peak_flops=PEAK_BF16_FLOPS):
     """Least time (ms) and what bounds it."""
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak_flops
@@ -823,12 +887,11 @@ def norm_bounds(n, e, bias):
     and the f32 mu/rstd; the backward reads dout, y, g, mu and rstd and
     writes dx and dg/db. About 10 operations per element: bytes bound
     every one of them."""
-    act = n * e * 2
-    params = e * 4 * (2 if bias else 1)
-    stats = n * 8
-    fwd = _bound(2 * act + params + stats, 10 * n * e)
-    add = _bound(4 * act + params + stats, 11 * n * e)
-    bwd = _bound(3 * act + e * 4 + stats + params, 12 * n * e)
+    from dlrover_tpu_torch.ops import layer_norm as ln
+
+    fwd = _bound(ln.io_bytes(n, e, "fwd", bias), 10 * n * e)
+    add = _bound(ln.io_bytes(n, e, "add", bias), 11 * n * e)
+    bwd = _bound(ln.io_bytes(n, e, "bwd", bias), 12 * n * e)
     return fwd, add, bwd
 
 
@@ -844,19 +907,21 @@ def flash_times(d: int) -> dict:
     o, lse = fa._fwd_cuda(q, k, v, True, scale, None, 0)
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
     plain_reps = 5 if d == 64 else 3
+    def fwd():
+        return fa._fwd_cuda(q, k, v, True, scale, None, 0)
+
+    def bwd():
+        return fa._bwd_cuda(q, k, v, lse, do, delta, True, scale, None, 0)
+
     times = {
-        "fwd": median_ms(
-            lambda: fa._fwd_cuda(q, k, v, True, scale, None, 0)
-        ),
+        "fwd": median_ms(fwd),
+        "fwd_device": device_ms(fwd),
         "fwd_plain": median_ms(
             lambda: fa.flash_attention_ref(q, k, v, True, scale),
             reps=plain_reps,
         ),
-        "bwd": median_ms(
-            lambda: fa._bwd_cuda(
-                q, k, v, lse, do, delta, True, scale, None, 0
-            )
-        ),
+        "bwd": median_ms(bwd),
+        "bwd_device": device_ms(bwd),
         "bwd_plain": median_ms(
             lambda: fa.flash_attention_bwd_ref(
                 q, k, v, lse, do, delta, True, scale
@@ -902,24 +967,29 @@ def norm_times(path: str) -> dict:
     x, r, g, b, dout = _norm_inputs(9, n, e)
     b = b if bias else None
     eps = 1e-6 if rms else 1e-5
-    _, _, mu, rstd = ln._fwd_cuda(x, None, g, b, eps, rms)
+    _, _, stats = ln._fwd_cuda(x, None, g, b, eps, rms)
+    mu, rstd = stats
+    kernels = {
+        "fwd": lambda: ln._fwd_cuda(x, None, g, b, eps, rms),
+        "add": lambda: ln._fwd_cuda(x, r, g, b, eps, rms),
+        # the backward kernel and the sum of its dg/db partials
+        "bwd": lambda: ln._bwd_cuda(dout, x, g, stats, rms, bias),
+    }
     times = {
-        "fwd": median_ms(lambda: ln._fwd_cuda(x, None, g, b, eps, rms)),
         "fwd_plain": median_ms(
             lambda: ln.layer_norm_fwd_ref(x, None, g, b, eps, rms)
         ),
-        "add": median_ms(lambda: ln._fwd_cuda(x, r, g, b, eps, rms)),
         "add_plain": median_ms(
             lambda: ln.layer_norm_fwd_ref(x, r, g, b, eps, rms)
         ),
         "add_library": None,  # no single PyTorch call adds and norms
-        "bwd": median_ms(
-            lambda: ln._bwd_cuda(dout, x, g, mu, rstd, rms, bias)
-        ),
         "bwd_plain": median_ms(
             lambda: ln.layer_norm_bwd_ref(dout, x, g, mu, rstd, rms, bias)
         ),
     }
+    for key, call in kernels.items():
+        times[key] = median_ms(call)
+        times[f"{key}_device"] = device_ms(call)
     # Library yardsticks on the same values (weights in x's dtype, as
     # the library's bf16 kernels take them).
     xl = x.detach().requires_grad_(True)
@@ -930,11 +1000,15 @@ def norm_times(path: str) -> dict:
     else:
         lib = lambda: F.layer_norm(xl, (e,), gl, bl, eps)  # noqa: E731
     times["fwd_library"] = median_ms(lib)
+    times["fwd_library_device"] = device_ms(lib)
     out = lib()
     wrt = (xl, gl) + ((bl,) if bias else ())
-    times["bwd_library"] = median_ms(
-        lambda: torch.autograd.grad(out, wrt, dout, retain_graph=True)
-    )
+
+    def lib_bwd():
+        return torch.autograd.grad(out, wrt, dout, retain_graph=True)
+
+    times["bwd_library"] = median_ms(lib_bwd)
+    times["bwd_library_device"] = device_ms(lib_bwd)
     fwd, add, bwd = norm_bounds(n, e, bias)
     times.update(
         fwd_bound=fwd[0], fwd_bound_by=fwd[1],
@@ -1015,13 +1089,14 @@ def quant_times() -> dict:
     times = {}
     for key, (kernel, plain) in _quant_kernels(x).items():
         times[key] = median_ms(kernel)
+        times[f"{key}_device"] = device_ms(kernel)
         times[f"{key}_plain"] = median_ms(plain, reps=5)
         times[f"{key}_library"] = None  # no single PyTorch call does it
         times[f"{key}_bound"], times[f"{key}_bound_by"] = (
             bounds[key.rstrip("su")]
         )
     for key in ("q4", "dq4"):
-        for suffix in ("", "_plain", "_bound"):
+        for suffix in ("", "_device", "_plain", "_bound"):
             times[f"{key}{suffix}"] = (
                 times[f"{key}s{suffix}"] + times[f"{key}u{suffix}"]
             ) / 2
@@ -1304,6 +1379,7 @@ def kernels_line(res: dict) -> dict:
             "launches": launches,
             "max_abs_err": err,
             "ms": t[key],
+            "device_ms": t[f"{key}_device"],
             "plain_ms": t[f"{key}_plain"],
             "bound_ms": t[f"{key}_bound"],
             "bound_by": t[f"{key}_bound_by"],
@@ -1333,7 +1409,7 @@ def kernels_line(res: dict) -> dict:
             errs[f"norm_fwd_{path}"], t, "fwd",
         )
         entry(
-            f"layer_norm_bwd {label} ({path})", norm_src,
+            f"layer_norm_bwd + dg/db sum {label} ({path})", norm_src,
             "dlrover_tpu/ops/layer_norm.py:88", launches["norm_bwd"],
             errs[f"norm_bwd_{path}"], t, "bwd",
         )

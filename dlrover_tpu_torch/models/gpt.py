@@ -221,7 +221,7 @@ def default_attention_for(cfg: GPTConfig, device=None) -> Callable:
     if cfg.attn_blocks is not None:
         raise NotImplementedError(
             "attn_blocks tunes the TPU kernel's tiles; the CUDA kernels "
-            "have fixed 64x64 tiles"
+            "choose their own tiles for each head_dim"
         )
     use_flash = cfg.use_flash_attention
     if use_flash is None:

@@ -4,7 +4,7 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its
 own into ``lib<name>.so`` for ``sm_90a`` (Hopper), then loaded with
 ``ctypes``. The source includes no PyTorch header, so a build takes
 seconds; the wrappers pass pointers from ``tensor.data_ptr()`` and the
-stream from ``torch.cuda.current_stream().cuda_stream``.
+current stream's handle.
 
 Libraries go to ``build/dlrover_tpu_torch/<hash>/`` at the root of the
 checkout (listed in ``.gitignore``), keyed by a hash of the sources and

@@ -29,7 +29,8 @@ def profiler(path: str):
 # name; the first family that matches takes the kernel.
 KERNEL_FAMILIES = (
     ("flash", ("flash_fwd_kernel", "flash_bwd_")),
-    ("norm", ("layer_norm_fwd_kernel", "layer_norm_bwd_kernel")),
+    ("norm", ("layer_norm_fwd_kernel", "layer_norm_bwd_kernel",
+              "layer_norm_dgdb_kernel")),
     # quantize_kernel, dequantize_kernel and their nibble variants
     ("quant", ("quantize_kernel", "quantize_nibble_kernel")),
     ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),

@@ -201,7 +201,7 @@ def test_wrappers_send_cuda_tensors_to_the_kernels(monkeypatch):
     assert tfa._fwd(x, x, x, True, 1.0, None, 0) == ("o", "lse")
     assert tfa._bwd(x, x, x, x, x, x, True, 1.0, None, 0) == (1, 2, 3)
     assert tln._fwd(x, None, x, None, 1e-5, False) == "nf"
-    assert tln._bwd(x, x, x, x, x, True, False) == "nb"
+    assert tln._bwd(x, x, x, x, True, False) == "nb"
     assert tq.quantize_blockwise(x) == "q"
     assert tq.dequantize_blockwise(x, x, (4,)) == "d"
     assert tq.quantize_blockwise_4bit(x, signed=False) == "q"

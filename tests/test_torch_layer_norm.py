@@ -18,7 +18,9 @@ the neighbouring bf16 value; measured 1.3e-8); dg and db are f32 sums
 on both sides, 1e-5 as in f32 (measured 2.2e-7).
 """
 
+import ctypes
 import importlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -200,11 +202,137 @@ def test_add_variant_normalises_the_unrounded_sum():
     assert torch.equal(out, want)
 
 
+ROW_COUNTS = (1, 210, 395, 396, 397, 1000, 8192, 100_000)
+KINDS = ("fwd", "add", "bwd")
+# each side of the warp/block dispatch, GPT-2's and Llama's widths, and
+# the widest row
+WIDTHS = (8, 64, 768, 1024, 1032, 2048, 4096, 6144, 8192)
+
+
+def _groups(ls, n):
+    """The row ranges of every group of a launch, in launch order."""
+    groups = ls.blocks * ls.groups_per_block
+    return [
+        range(min(n, k * ls.rows), min(n, (k + 1) * ls.rows))
+        for k in range(groups)
+    ]
+
+
 def test_backward_blocks_cover_every_row():
-    for n in (1, 210, 395, 396, 397, 1000, 8192, 100_000):
-        rows, blocks = tln.bwd_blocks(n)
-        assert blocks <= tln.BWD_TARGET_BLOCKS
-        assert (blocks - 1) * rows < n <= blocks * rows
+    """Every row falls in exactly one group of the backward's launch
+    (and of the forwards'), and the backward's partial dg/db rows are
+    one a block."""
+    for e in WIDTHS:
+        for kind in KINDS:
+            for n in ROW_COUNTS:
+                ls = tln.launch_shape(n, e, kind)
+                rows = [r for g in _groups(ls, n) for r in g]
+                assert rows == list(range(n)), (n, e, kind)
+                # no block without a row: the last block holds row n - 1
+                first_of_last = (ls.blocks - 1) * ls.groups_per_block
+                assert first_of_last * ls.rows < n
+
+
+@pytest.mark.parametrize("e", WIDTHS)
+def test_launch_shape_dispatches_by_width(e):
+    """A warp reduces a row up to WARP_MAX_WIDTH (eight warps a block,
+    every chunk of 8 in some lane and no lane without one at E 768);
+    above it a block of at most THREADS threads does, with 1, 2 or 4
+    chunks a thread."""
+    chunks = e // 8
+    for kind in KINDS:
+        ls = tln.launch_shape(8192, e, kind)
+        assert ls.warp == (e <= tln.WARP_MAX_WIDTH)
+        if ls.warp:
+            assert ls.threads == tln.THREADS and ls.groups_per_block == 8
+            assert ls.nv == -(-chunks // 32) and ls.nv in (1, 2, 3, 4)
+        else:
+            assert ls.groups_per_block == 1 and ls.nv in (1, 2, 4)
+            assert ls.threads % 32 == 0 and ls.threads <= tln.THREADS
+            assert ls.nv * ls.threads >= chunks
+            assert (ls.threads - 32) * ls.nv < chunks  # no idle warp
+    assert tln.launch_shape(8192, 768, "fwd").nv * 32 == 768 // 8
+    assert tln.launch_shape(8192, 4096, "fwd")[:3] == (False, 2, 256)
+
+
+def _blocks_per_sm(ls, kind):
+    if ls.nv == 4:
+        return 1
+    if ls.warp or kind == "bwd":
+        return 2
+    return tln.FWD_BLOCKS_PER_SM
+
+
+@pytest.mark.parametrize("e", WIDTHS)
+def test_launch_shape_is_a_persistent_grid_that_fits(e):
+    """A few blocks an SM (one where a thread holds four chunks), all
+    resident at once: each block's ring (and staged output rows) fits
+    its share of the SM's shared memory, and the kernels' own checks
+    (``bad_shape`` in csrc/layer_norm.cu) hold."""
+    for sms in (132, 114):
+        for kind in KINDS:
+            for n in ROW_COUNTS:
+                ls = tln.launch_shape(n, e, kind, sms)
+                per_sm = _blocks_per_sm(ls, kind)
+                assert ls.blocks <= per_sm * sms
+                if n >= per_sm * sms * ls.groups_per_block:
+                    assert ls.blocks > (per_sm * sms) // 2
+                assert 1 <= ls.stages <= min(tln.MAX_STAGES, ls.rows)
+                streams = tln._STREAMS[kind]
+                ring = ls.groups_per_block * ls.stages * streams * e * 2
+                staged = 0 if ls.warp else 2 * tln._OUTS[kind] * e * 2
+                assert ls.smem == tln.BAR_BYTES + ring + staged
+                assert per_sm * (ls.smem + tln.BLOCK_SMEM_EXTRA) <= (
+                    tln.SM_SMEM
+                )
+                lanes = 32 if ls.warp else ls.threads
+                assert ls.nv * lanes * 8 >= e
+                assert ls.blocks * ls.groups_per_block * ls.rows >= n
+    # GPT-2's 8192 rows: 4 rows a warp, 8 warps a block, 256 blocks
+    assert tln.launch_shape(8192, 768, "bwd")[3:5] == (256, 4)
+
+
+def _cu_source() -> str:
+    from dlrover_tpu_torch.ops import _build
+
+    return (_build.CSRC / "layer_norm.cu").read_text()
+
+
+def test_launch_record_matches_the_c_struct():
+    """``_Shape`` is read by the C entry points as ``NormShape``: the
+    same fields in the same order, and the constants both sides share."""
+    src = _cu_source()
+    body = re.search(r"struct NormShape \{(.*?)\};", src, re.S).group(1)
+    fields = []
+    for decl in re.findall(r"(int|float)\s+([^;]+);", body):
+        fields += [(decl[0], f.strip()) for f in decl[1].split(",")]
+    ctype = {"int": ctypes.c_int, "float": ctypes.c_float}
+    assert [(n, t) for n, t in tln._Shape._fields_] == [
+        (name, ctype[t]) for t, name in fields
+    ]
+    for const, value in (
+        ("kMaxWidth", tln.MAX_WIDTH), ("kWarpMaxWidth", tln.WARP_MAX_WIDTH),
+        ("kMaxThreads", tln.THREADS), ("kMaxStages", tln.MAX_STAGES),
+    ):
+        assert re.search(rf"constexpr int {const} = {value};", src), const
+
+
+def test_every_norm_kernel_is_in_the_norm_family():
+    """Each ``__global__`` function of csrc/layer_norm.cu, under the name
+    the profiler prints, counts in the profile's ``norm`` family."""
+    from dlrover_tpu_torch.trainer.profile import kernel_family
+
+    names = [
+        re.search(r"(\w+_kernel)\(", decl).group(1)
+        for decl in _cu_source().split("__global__")[1:]
+    ]
+    assert set(names) == {
+        "layer_norm_fwd_kernel", "layer_norm_bwd_kernel",
+        "layer_norm_dgdb_kernel",
+    }
+    for name in names:
+        printed = f"void (anonymous namespace)::{name}<true, 3, false>(int)"
+        assert kernel_family(printed) == "norm", name
 
 
 def test_kernel_input_checks_raise():
@@ -222,3 +350,43 @@ def test_kernel_input_checks_raise():
     with pytest.raises(ValueError, match="float32"):
         tln._param(torch.ones(32), 64, x.device, "g")
     assert tln._rows(x.t().contiguous().t(), "x").is_contiguous()
+
+
+def test_kernel_input_checks_raise_after_the_rewrite():
+    """The wrappers name the tensor the kernels cannot take, before any
+    allocation or launch: misaligned rows or parameters, a residual, y
+    or stats of another shape."""
+    x = torch.zeros(4, 64, dtype=torch.bfloat16)
+    g = torch.ones(64)
+    flat = torch.zeros(1 + 4 * 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="read x in 16-byte pieces"):
+        tln._rows(flat[1:].view(4, 64), "x")
+    with pytest.raises(ValueError, match="read b in 16-byte pieces"):
+        tln._param(torch.ones(65)[1:], 64, x.device, "b")
+    with pytest.raises(ValueError, match="residual .* must match x"):
+        tln._fwd_cuda(x, x[:2], g, None, 1e-5, False)
+    with pytest.raises(TypeError, match="residual is torch.float32"):
+        tln._fwd_cuda(x, x.float(), g, None, 1e-5, False)
+    with pytest.raises(ValueError, match="take g as float32"):
+        tln._fwd_cuda(x, None, g[:32], None, 1e-5, False)
+    with pytest.raises(ValueError, match="must match the saved input"):
+        tln._bwd_cuda(x, x[:2], g, torch.zeros(2, 4), True, False)
+    for bad in (torch.zeros(2, 3), torch.zeros(4, 2), torch.zeros(8).double()):
+        with pytest.raises(ValueError, match=r"stats \(mu, rstd\)"):
+            tln._bwd_cuda(x, x, g, bad, True, False)
+    stats = torch.zeros(2, 4)
+    assert tln._stats(stats, 4, x.device) is stats
+    assert tln._param(g, 64, x.device, "g") is g
+    assert tln._rows(x, "x") is x
+
+
+def test_io_bytes_counts_each_input_and_output_once():
+    """The bytes behind the kernels' bounds: bf16 rows, f32 g/b, stats
+    and dg/db; the Llama backward moves 201 MB (60 us at 3.35 TB/s)."""
+    n, e = 8192, 4096
+    act, stats = n * e * 2, n * 8
+    assert tln.io_bytes(n, e, "fwd", False) == 2 * act + e * 4 + stats
+    assert tln.io_bytes(n, e, "add", True) == 4 * act + 2 * e * 4 + stats
+    assert tln.io_bytes(n, e, "bwd", False) == 3 * act + 2 * e * 4 + stats
+    assert tln.io_bytes(n, e, "bwd", True) == 3 * act + 3 * e * 4 + stats
+    assert round(tln.io_bytes(n, e, "bwd", False) / 3.35e12 * 1e6) == 60
