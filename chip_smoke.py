@@ -60,7 +60,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
    first loss must be ln(50304) within 0.1, every loss finite, and the
    first loss must match the same step with dense attention and the
    plain LayerNorm.
-5. ``train_low_bit``: the same GPT-2 run with ``--optimizer adam8bit``
+5. ``elastic``: the same GPT-2 run under the port's elastic launcher,
+   as a user starts it: ``python -m dlrover_tpu_torch.trainer.elastic_run
+   --standalone --nproc_per_node 1 -m
+   dlrover_tpu_torch.examples.nanogpt.train -- --model gpt2 --steps 8
+   --checkpoint-every 3 --checkpoint-dir <dir>``, through the port's own
+   job master and agent, one trainer on NCCL (a world of one). The
+   example's drill hook SIGKILLs the trainer once step 4 is done; the
+   agent flushes the step-3 checkpoint and restarts it, and it resumes
+   from the checkpoint to step 8. Checks: launcher rc 0; exactly one
+   restart; the restart restores step 3, every leaf's checksum equal to
+   what was staged at step 3; its first batch's token checksum equal to
+   the killed run's at step 4; every loss finite and within LOSS_TOL of
+   phase ``train``'s at the same step; the flash and norm kernels
+   launched in both incarnations; and no module of jax or of
+   ``dlrover_tpu`` in the launcher's, the master's or a trainer's
+   ``sys.modules`` (an import audit installed through ``sitecustomize``
+   for these processes only). It prints the device-to-shm staging time,
+   the agent's persist time, the restore time, the recovery time (kill to
+   the first step done after the restore) with its phases, and tokens/s
+   beside phase ``train``'s.
+6. ``train_low_bit``: the same GPT-2 run with ``--optimizer adam8bit``
    and then ``--optimizer adam4bit`` (4 steps each), the counters zeroed
    just before each run and read just after. Every loss finite, the
    first loss equal to phase ``train``'s within LOSS_TOL, the last below
@@ -68,7 +88,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    every quantized leaf each step (and at init), the state's bytes at
    most 0.252 (int8) and 0.127 (int4) of f32 moments, and a rerun with
    the plain quantizers (``--quant plain``) within 1e-3 at every step.
-6. ``train_llama_lora``: LoRA fine-tuning of Llama-2-7B at full width
+7. ``train_llama_lora``: LoRA fine-tuning of Llama-2-7B at full width
    and depth (32 layers, 32 heads, n_embd 4096, head_dim 128, SwiGLU
    11008, vocab 32000, T 4096, bf16, full remat; rank 8, AdamW 1e-3)
    through the LoRA example's ``run()`` at batch 2 for 4 steps, the
@@ -90,14 +110,20 @@ import gc
 import json
 import math
 import os
+import re
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import uuid
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = (
-    "card", "kernels", "times", "train", "train_low_bit", "train_llama_lora",
+    "card", "kernels", "times", "train", "elastic", "train_low_bit",
+    "train_llama_lora",
 )
 
 # Flash attention's bf16 outputs, compared element by element:
@@ -1238,7 +1264,269 @@ def phase_train(res: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: GPT-2 with the low-bit optimizers
+# phase 5: the elastic launch, a kill and a restart
+# ---------------------------------------------------------------------------
+
+ELASTIC_STEPS, ELASTIC_EVERY, ELASTIC_KILL = 8, 3, 4
+ELASTIC_TIMEOUT_S = 600
+# Installed through PYTHONPATH for the launcher's processes only: reports
+# every process it runs in, and every module of jax or the JAX package
+# that such a process loads (found on the path, so the import succeeds).
+IMPORT_AUDIT = r"""
+import importlib.abc, importlib.machinery, importlib.util, os, sys
+
+_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "dlrover_tpu")
+
+
+class _Audit(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if not any(name == f or name.startswith(f + ".")
+                   for f in _FORBIDDEN):
+            return None
+        for finder in sys.meta_path:
+            if finder is self or not hasattr(finder, "find_spec"):
+                continue
+            spec = finder.find_spec(name, path, target)
+            if spec is not None:
+                sys.stderr.write(f"IMPORT_AUDIT_LOADED {os.getpid()} {name}\n")
+                sys.stderr.flush()
+                return spec
+        return None
+
+
+sys.meta_path.insert(0, _Audit())
+sys.stderr.write(f"IMPORT_AUDIT_ON {os.getpid()}\n")
+_here = os.path.dirname(os.path.abspath(__file__))
+_next = importlib.machinery.PathFinder.find_spec(
+    "sitecustomize",
+    [p for p in sys.path if os.path.abspath(p or ".") != _here],
+)
+if _next is not None:  # the interpreter's own sitecustomize, if any
+    _mod = importlib.util.module_from_spec(_next)
+    _next.loader.exec_module(_mod)
+"""
+STEP_LINE = re.compile(
+    r"step (\d+): loss (\S+) (\S+) s [^\n]*? batch_sum (-?\d+) rank (\d+) "
+    r"restart (\d+) at (\S+)"
+)
+RECORD_LINE = re.compile(r"(ckpt_\w+|killing|launches) (\{.*\})")
+
+
+def _elastic_run(work: str, data_tokens: int) -> dict:
+    """Run the launcher once; its exit code, output, steps and records.
+    ``data_tokens``: phase train's token stream, so that the steps both
+    runs take see the same samples."""
+    audit = os.path.join(work, "audit")
+    os.makedirs(audit)
+    with open(os.path.join(audit, "sitecustomize.py"), "w") as f:
+        f.write(IMPORT_AUDIT)
+    env = dict(os.environ)
+    env.update({
+        "PYTHONPATH": os.pathsep.join(
+            [audit, REPO] + [p for p in env.get("PYTHONPATH", "").split(
+                os.pathsep) if p]),
+        "DLROVER_TPU_JOB_NAME": f"smoke{uuid.uuid4().hex[:8]}",
+        "DLROVER_TPU_PHASES_FILE": os.path.join(work, "phases.json"),
+        "DLROVER_TPU_KILL_AT_STEP": str(ELASTIC_KILL),
+        "DLROVER_TPU_KILL_RANK": "0",
+    })
+    cmd = [
+        sys.executable, "-m", "dlrover_tpu_torch.trainer.elastic_run",
+        "--standalone", "--nproc_per_node", "1",
+        "-m", "dlrover_tpu_torch.examples.nanogpt.train", "--",
+        *GPT2_ARGS, "--steps", str(ELASTIC_STEPS),
+        "--checkpoint-every", str(ELASTIC_EVERY),
+        "--checkpoint-dir", os.path.join(work, "ckpt"), "--checksums",
+        "--data-tokens", str(data_tokens),
+    ]
+    log(f"# elastic: {' '.join(cmd[1:])}")
+    t0 = time.time()
+    proc = subprocess.Popen(
+        cmd, cwd=work, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, start_new_session=True,
+    )
+    try:
+        out, err = proc.communicate(timeout=ELASTIC_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        raise SmokeFailure(
+            f"elastic launcher timed out:\n{out[-3000:]}\n{err[-3000:]}"
+        )
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+    steps = [
+        dict(step=int(m[1]), loss=float(m[2]), step_s=float(m[3]),
+             batch_sum=int(m[4]), rank=int(m[5]), restart=int(m[6]),
+             at=float(m[7]))
+        for m in STEP_LINE.finditer(out)
+    ]
+    records: dict = {}
+    for m in RECORD_LINE.finditer(out):
+        records.setdefault(m[1], []).append(json.loads(m[2]))
+    for line in out.splitlines():  # the launcher's output, checksums cut
+        log(f"#   | {line[:240]}")
+    phases = {}
+    if os.path.exists(env["DLROVER_TPU_PHASES_FILE"]):
+        with open(env["DLROVER_TPU_PHASES_FILE"]) as f:
+            phases = json.load(f)
+    return dict(rc=proc.returncode, out=out, err=err, steps=steps,
+                records=records, phases=phases, wall_s=time.time() - t0)
+
+
+def _log_time(text: str, needle: str):
+    """Epoch seconds of the first log line holding ``needle``, or None
+    (log lines start with the local ``[YYYY-MM-DD HH:MM:SS,mmm]``)."""
+    import datetime
+
+    for line in text.splitlines():
+        if needle in line and line.startswith("[20"):
+            stamp = line[1:24]
+            return datetime.datetime.strptime(
+                stamp, "%Y-%m-%d %H:%M:%S,%f").timestamp()
+    return None
+
+
+def phase_elastic(res: dict) -> None:
+    free_memory()
+    work = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    try:
+        run = _elastic_run(work, res["train"]["data_tokens"])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    tail = f"\n{run['out'][-4000:]}\n{run['err'][-4000:]}"
+    check(run["rc"] == 0, f"elastic launcher exited {run['rc']}{tail}")
+    steps, rec = run["steps"], run["records"]
+    first = [s for s in steps if s["restart"] == 0]
+    second = [s for s in steps if s["restart"] == 1]
+    check(
+        {s["restart"] for s in steps} == {0, 1}
+        and [s["step"] for s in first] == list(range(1, ELASTIC_KILL + 1))
+        and [s["step"] for s in second]
+        == list(range(ELASTIC_EVERY + 1, ELASTIC_STEPS + 1)),
+        f"want steps 1..{ELASTIC_KILL}, one restart, then steps "
+        f"{ELASTIC_EVERY + 1}..{ELASTIC_STEPS}; got "
+        f"{[(s['step'], s['restart']) for s in steps]}{tail}",
+    )
+    killed = rec.get("killing", [])
+    check(len(killed) == 1 and killed[0]["step"] == ELASTIC_KILL,
+          f"want one kill at step {ELASTIC_KILL}, got {killed}")
+    staged = {r["step"]: r for r in rec.get("ckpt_staged", [])}
+    restored = rec.get("ckpt_restored", [])
+    check(len(restored) == 1 and restored[0]["step"] == ELASTIC_EVERY,
+          f"want one restore of step {ELASTIC_EVERY}, got {restored}")
+    restored = restored[0]
+    want_sums = staged[ELASTIC_EVERY]["checksums"]
+    bad = sorted(k for k in want_sums
+                 if restored["checksums"].get(k) != want_sums[k])
+    check(not bad and restored["checksums"].keys() == want_sums.keys(),
+          f"restored leaves differ from the staged step {ELASTIC_EVERY}: "
+          f"{bad}")
+    resumed, killed_step = second[0], first[-1]
+    check(
+        resumed["batch_sum"] == killed_step["batch_sum"],
+        f"the first batch after the restore ({resumed['batch_sum']}) is not "
+        f"the killed run's step-{ELASTIC_KILL} batch "
+        f"({killed_step['batch_sum']})",
+    )
+    ref = res["train"]["losses"]
+    losses = [(s["step"], s["restart"], s["loss"]) for s in steps]
+    check(all(math.isfinite(l) for _, _, l in losses),
+          f"non-finite loss {losses}")
+    diffs = [
+        (step, restart, abs(loss - ref[step - 1]))
+        for step, restart, loss in losses if step <= len(ref)
+    ]
+    check(all(d <= LOSS_TOL for _, _, d in diffs),
+          f"losses differ from phase train's by more than {LOSS_TOL}: "
+          f"{diffs}")
+    # The restarted trainer's counters (the killed one printed none), as
+    # phase train counts them: full remat runs each layer's forward
+    # twice a microbatch, and each layer has two norms.
+    launches = {r["restart"]: r for r in rec.get("launches", [])}.get(1, {})
+    per = 12 * res["train"]["accum_steps"] * len(second)
+    want = {"flash_fwd": 2 * per, "flash_bwd": per,
+            "norm_fwd": 4 * per, "norm_bwd": 2 * per}
+    check(all(launches.get(k, 0) >= n for k, n in want.items()),
+          f"restarted trainer's kernel launches {launches} below {want}")
+    audited = set(re.findall(r"IMPORT_AUDIT_ON (\d+)", run["err"]))
+    loaded = re.findall(r"IMPORT_AUDIT_LOADED (\d+) (\S+)", run["err"])
+    # launcher (the agent), master, and one trainer an incarnation
+    check(len(audited) >= 4, f"import audit ran in {len(audited)} "
+          "processes, want the launcher, the master and two trainers")
+    check(not loaded, f"modules of jax or dlrover_tpu loaded: {loaded}")
+    tokens = 16 * 1024  # GPT2_ARGS' global batch x T
+    tok_s = {
+        "killed run, steps 2..4": tokens * (len(first) - 1)
+        / sum(s["step_s"] for s in first[1:]),
+        "restarted run, steps 5..8": tokens * (len(second) - 1)
+        / sum(s["step_s"] for s in second[1:]),
+    }
+    persisted = rec.get("ckpt_persisted", [{}])[-1]
+    marks = run["phases"]
+    kill_t = killed[0]["time"]
+    # Recovery, from the agent's and the master's logs (their clock is
+    # this host's) and the restarted trainer's phase marks: the agent
+    # notices the exit, stops the group, collects forensics and tells the
+    # master, flushes the staged checkpoint, joins a new rendezvous and
+    # spawns; the new process starts the interpreter and imports, joins
+    # NCCL, builds the model, restores, and takes its first step.
+    flush = re.findall(r"checkpoint flush before restart took (\S+) s",
+                       run["err"])
+    agent = {
+        "noticed": _log_time(run["err"], "exited with code"),
+        "reported": _log_time(run["err"], "training process failed"),
+        "flushed": _log_time(run["err"], "checkpoint flush before restart"),
+        "spawned": _log_time(run["err"], "restart=1)"),
+    }
+    recovery = {"total": resumed["at"] - kill_t}
+    if flush and all(agent.values()):
+        flush_start = agent["flushed"] - float(flush[0])
+        recovery.update(
+            kill_to_noticed=agent["noticed"] - kill_t,
+            noticed_to_master_told=agent["reported"] - agent["noticed"],
+            master_told_to_flush_start=flush_start - agent["reported"],
+            flush=float(flush[0]),
+            flush_end_to_spawn=agent["spawned"] - agent["flushed"],
+            spawn_to_proc_start=marks.get("proc_start", 0.0)
+            - agent["spawned"],
+        )
+    order = ["proc_start", "dist_ready", "built", "restore_done",
+             "first_step_done"]
+    for a, b in zip(order, order[1:]):
+        if a in marks and b in marks:
+            recovery[f"{a}_to_{b}"] = marks[b] - marks[a]
+    res["elastic"] = dict(
+        stage_s={k: v["stage_s"] for k, v in staged.items()},
+        persist_s=persisted.get("wait_s"),
+        flush_s=[float(x) for x in flush],
+        restore_s=restored["restore_s"], restore_source=restored["source"],
+        recovery_s=recovery, tokens_per_s=tok_s,
+        launches=launches, wall_s=run["wall_s"],
+    )
+    log(
+        f"# elastic gpt2: losses {losses} | |loss - train| {diffs} (tol "
+        f"{LOSS_TOL}) | resumed at step {resumed['step']} from step "
+        f"{restored['step']} ({restored['source']}), batch_sum "
+        f"{resumed['batch_sum']} | launches after restart "
+        f"{launches} | import audit: {len(audited)} processes, "
+        f"none loaded jax or dlrover_tpu"
+    )
+    log(
+        f"# elastic times ({res['card']}): device->shm stage blocking s by "
+        f"step {res['elastic']['stage_s']} | agent persist (trainer's wait "
+        f"from staging step {persisted.get('step')} to its commit) s "
+        f"{persisted.get('wait_s')} | agent flush before restart s {flush} "
+        f"| restore s {restored['restore_s']} ({restored['source']}) | "
+        f"recovery s {recovery} | tokens/s {tok_s} vs phase train "
+        f"{res['train']['tokens_per_s']:.1f} | launcher wall s "
+        f"{run['wall_s']:.1f}"
+    )
+
+
+# ---------------------------------------------------------------------------
+# phase 6: GPT-2 with the low-bit optimizers
 # ---------------------------------------------------------------------------
 
 
@@ -1305,7 +1593,7 @@ def phase_train_low_bit(res: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: the Llama-2-7B LoRA path
+# phase 7: the Llama-2-7B LoRA path
 # ---------------------------------------------------------------------------
 
 

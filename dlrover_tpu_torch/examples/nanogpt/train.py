@@ -3,6 +3,9 @@
 
     python -m dlrover_tpu_torch.examples.nanogpt.train --model gpt2 --steps 10
     python -m dlrover_tpu_torch.examples.nanogpt.train --smoke --device cpu
+    python -m dlrover_tpu_torch.trainer.elastic_run --standalone \
+        --nproc_per_node 1 -m dlrover_tpu_torch.examples.nanogpt.train -- \
+        --model gpt2 --steps 8 --checkpoint-every 3 --checkpoint-dir DIR
 
 Builds the GPT (``models/gpt.py``), the optax-matching AdamW
 (``optim/adamw.py``, lr 3e-4 and weight decay 0.1 as the JAX bench) and
@@ -16,8 +19,21 @@ optimizers by name (``accelerate/api.make_optimizer``: agd, adam8bit,
 adam4bit, sgd, at ``--lr``); the low-bit ones quantize their moments
 through the quantization kernels, or through the plain quantizers with
 ``--quant plain``.
-Elastic launch, flash checkpoint and ``auto_accelerate`` arrive with
-later slices of the port (ROADMAP queue 1).
+
+Under the elastic launcher (``trainer/elastic_run.py``) each process
+joins the agent's ``torch.distributed`` world (``trainer/torch_env.py``:
+NCCL on the card, gloo with ``--device cpu``), reads its shard of every
+global batch through the sampler, and averages gradients over the world.
+``--checkpoint-dir`` turns on flash checkpoints
+(``trainer/flash_checkpoint``): the state ``(params, (opt_state,))``
+and the sampler's position are staged into shared memory every
+``--checkpoint-every`` steps and after the last, persisted by the agent,
+and restored before the loop, so a trainer the agent restarts resumes
+at the checkpoint's step and sample. Without it, and outside the
+launcher, the run is the one-process loop it always was. It writes the
+agent's step-metrics file and phase marks from local rank 0.
+``--checksums`` prints a checksum of every leaf staged and restored.
+``auto_accelerate`` arrives with a later slice (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -25,7 +41,10 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
+import json
 import math
+import os
+import signal
 import sys
 import time
 
@@ -33,16 +52,33 @@ import numpy as np
 import torch
 
 from dlrover_tpu_torch.accelerate.api import OPTIMIZERS, make_optimizer
+from dlrover_tpu_torch.agent.monitor import TrainingMonitor
 from dlrover_tpu_torch.models import gpt
+from dlrover_tpu_torch.ops import flash_attention as fa
+from dlrover_tpu_torch.ops import layer_norm as ln
+from dlrover_tpu_torch.ops import quantization as qz
 from dlrover_tpu_torch.optim.adamw import AdamW
 from dlrover_tpu_torch.optim.low_bit import LowBitAdam
+from dlrover_tpu_torch.trainer import torch_env
 from dlrover_tpu_torch.trainer.async_metrics import materialize
 from dlrover_tpu_torch.trainer.elastic_trainer import (
     ElasticDataLoader,
     ElasticDistributedSampler,
     ElasticTrainer,
 )
+from dlrover_tpu_torch.trainer.flash_checkpoint import (
+    Checkpointer,
+    StorageType,
+)
+from dlrover_tpu_torch.trainer.flash_checkpoint.engine import flatten_named
 from dlrover_tpu_torch.trainer.profile import profiler, write_profile
+
+# Drill hook: SIGKILL the trainer of global rank KILL_RANK_ENV (default
+# 0) once every rank is done with step KILL_AT_STEP_ENV and its
+# checkpoint, in the first incarnation only (the agent's restart count
+# is 0).
+KILL_AT_STEP_ENV = "DLROVER_TPU_KILL_AT_STEP"
+KILL_RANK_ENV = "DLROVER_TPU_KILL_RANK"
 
 
 def parse_args(argv=None):
@@ -71,9 +107,23 @@ def parse_args(argv=None):
     p.add_argument("--device", default=None,
                    help="default cuda; cpu only when asked for")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--data-tokens", type=int, default=0,
+                   help="length of the synthetic token stream (0: 200,000 "
+                   "or twice the tokens the run reads, the larger); runs "
+                   "of different lengths see the same samples only with "
+                   "the same stream")
     p.add_argument("--profile", default="",
                    help="trace the last step with torch.profiler and "
                    "write its device time by kernel to this file")
+    p.add_argument("--checkpoint-dir", default="",
+                   help="flash checkpoints into this directory (none "
+                   "when empty): restore before the loop, save after it")
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="also checkpoint every N steps (0: only after "
+                   "the last)")
+    p.add_argument("--checksums", action="store_true",
+                   help="print a checksum of every leaf staged and "
+                   "restored")
     args = p.parse_args(argv)
     if args.steps <= 0:
         args.steps = 8 if args.smoke else 50
@@ -137,16 +187,64 @@ class TokenWindows:
         return self.data[i : i + t], self.data[i + 1 : i + t + 1]
 
 
+def batch_checksum(tokens: np.ndarray) -> int:
+    """Position-weighted sum of a host batch's token ids: equal for the
+    same samples in the same order."""
+    flat = np.asarray(tokens).reshape(-1).astype(np.int64)
+    return int(flat @ (np.arange(1, flat.size + 1, dtype=np.int64) % 65521))
+
+
+def state_checksums(state) -> dict:
+    """{leaf name: position-weighted sum of the leaf's bits}, computed
+    on the leaf's device; Python scalars as they are."""
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out = {}
+    for name, leaf in flatten_named(state):
+        if not isinstance(leaf, torch.Tensor):
+            out[name] = leaf
+            continue
+        bits = leaf.detach().contiguous().view(-1)
+        bits = bits.view(ints[bits.element_size()]).long()
+        weight = torch.arange(
+            1, bits.numel() + 1, device=bits.device
+        ) % 65521
+        out[name] = int((bits * weight).sum())
+    return out
+
+
+def kernel_launches() -> dict:
+    """This process's kernel launch counters (``ops/*``), by kernel."""
+    return {
+        "flash_fwd": fa.FWD_LAUNCHES, "flash_bwd": fa.BWD_LAUNCHES,
+        "norm_fwd": ln.FWD_LAUNCHES, "norm_bwd": ln.BWD_LAUNCHES,
+        "quant": qz.QUANT_LAUNCHES, "dequant": qz.DEQUANT_LAUNCHES,
+    }
+
+
+def _record(kind: str, **fields) -> None:
+    """One machine-readable line, ``<kind> {json}``."""
+    print(f"{kind} {json.dumps(fields, sort_keys=True)}", flush=True)
+
+
 def run(args) -> dict:
-    """Train for ``args.steps`` optimizer steps. Returns the per-step
-    losses and seconds, tokens per second over the steps after the
-    first (which pays for cuBLAS and allocator warm-up), the
-    accumulation factor, the peak device memory and the final optimizer
-    state."""
+    """Train for ``args.steps`` optimizer steps (after the step a
+    checkpoint restores, if any). Returns this run's per-step losses and
+    seconds, tokens per second over its steps after the first (which
+    pays for cuBLAS and allocator warm-up), the accumulation factor, the
+    peak device memory and the final optimizer state."""
+    lead = os.getenv("LOCAL_RANK", "0") == "0"
+    if lead:
+        TrainingMonitor.mark_phase("proc_start")
+    device = torch_env.setup_distributed(args.device)
+    rank = (
+        torch.distributed.get_rank()
+        if torch.distributed.is_initialized() else 0
+    )
+    if lead:
+        TrainingMonitor.mark_phase("dist_ready")
     cfg = model_config(args)
     gen = torch.Generator().manual_seed(args.seed)
-    params = gpt.init_params(cfg, generator=gen, device=args.device)
-    device = params["wte"].device
+    params = gpt.init_params(cfg, generator=gen, device=device)
     optimizer = make_run_optimizer(args)
     opt_state = optimizer.init(params)
     loss = functools.partial(gpt.loss_fn_fused, cfg=cfg)
@@ -156,32 +254,56 @@ def run(args) -> dict:
         micro_batch_size=args.micro_batch_size,
         device=device,
     )
-    n_tokens = max(
+    n_tokens = args.data_tokens or max(
         200_000, 2 * args.steps * trainer.samples_per_step * cfg.block_size
     )
     dataset = TokenWindows(
         synthetic_tokens(n_tokens, cfg.vocab_size, args.seed),
         cfg.block_size,
     )
-    sampler = ElasticDistributedSampler(len(dataset), seed=1337)
+    sampler = ElasticDistributedSampler(
+        len(dataset), num_shards=trainer.num_shards, shard_rank=rank,
+        seed=1337,
+    )
+    if lead:
+        TrainingMonitor.mark_phase("built")
+    ckpt = Checkpointer(args.checkpoint_dir) if args.checkpoint_dir else None
+    start = 0
+    if ckpt is not None:
+        restored = ckpt.load_checkpoint((params, (opt_state,)))
+        if restored is not None:
+            params, (opt_state,) = restored
+            start = trainer.step_num = ckpt.last_restored_step
+            sampler.load_state_dict(ckpt.last_restored_extra["sampler"])
+            _record(
+                "ckpt_restored", step=start, rank=rank,
+                source=ckpt.engine.last_load_source,
+                restore_s=ckpt.engine.last_load_s,
+                checksums=state_checksums(restored) if args.checksums
+                else None,
+            )
+    if lead:
+        TrainingMonitor.mark_phase("restore_done")
     batches = iter(ElasticDataLoader(
-        dataset, trainer.samples_per_step, sampler=sampler
+        dataset, trainer.local_samples_per_step, sampler=sampler
     ))
     name = "smoke" if args.smoke else args.model
     print(
         f"model {name}: {gpt.num_params(params) / 1e6:.1f}M params, "
         f"{cfg.n_layer} layers, T {cfg.block_size}, {cfg.dtype}, "
         f"remat {cfg.remat}, optimizer {args.optimizer}, global batch "
-        f"{trainer.samples_per_step} = "
+        f"{trainer.samples_per_step} = {trainer.num_shards} shards x "
         f"micro {args.micro_batch_size} x accum {trainer.accum_steps}, "
         f"device {device}",
         flush=True,
     )
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    losses, step_s = [], []
+    losses, step_s, stage_s = [], [], []
     tokens_per_step = trainer.samples_per_step * cfg.block_size
-    for step in range(1, args.steps + 1):
+    kill_at = int(os.getenv(KILL_AT_STEP_ENV, "0") or 0)
+    saved = -1
+    for step in range(start + 1, args.steps + 1):
         tok, tgt = next(batches)
         prof = profiler(args.profile if step == args.steps else "")
         with prof:
@@ -197,18 +319,63 @@ def run(args) -> dict:
             write_profile(prof, dt, args.profile)
         step_s.append(dt)
         print(
-            f"step {step}: loss {losses[-1]:.4f} {dt:.3f} s "
-            f"({tokens_per_step / dt:.0f} tok/s)",
+            f"step {step}: loss {losses[-1]:.6f} {dt:.3f} s "
+            f"({tokens_per_step / dt:.0f} tok/s) batch_sum "
+            f"{batch_checksum(tok)} rank {rank} restart "
+            f"{torch_env.restart_count()} at {time.time():.3f}",
             flush=True,
         )
+        if lead:
+            if step == start + 1:
+                TrainingMonitor.mark_phase("first_step_done")
+            TrainingMonitor.write_metrics(
+                step, tokens=(step - start) * tokens_per_step,
+                step_time=dt,
+            )
+        if ckpt is not None and (
+            step == args.steps
+            or (args.checkpoint_every and step % args.checkpoint_every == 0)
+        ):
+            if step == args.steps:
+                # The agent skips nothing it is persisting, so the last
+                # checkpoint waits for the one before it to land.
+                ckpt.wait_latest_checkpoint()
+            blocked = _save(ckpt, step, params, opt_state, sampler, rank,
+                            args.checksums)
+            if blocked is not None:
+                stage_s.append(blocked)
+                saved = step
+        if step == kill_at and torch_env.restart_count() == 0:
+            if torch.distributed.is_initialized():
+                torch.distributed.barrier()  # rank 0 has staged `step`
+            if rank == int(os.getenv(KILL_RANK_ENV, "0")):
+                _record("killing", step=step, rank=rank, time=time.time())
+                os.kill(os.getpid(), signal.SIGKILL)
+    persist_s = float("nan")
+    if ckpt is not None:
+        if saved < 0 and start > 0:
+            saved = start  # fully resumed: nothing new to save
+        t0 = time.perf_counter()
+        if not ckpt.wait_latest_checkpoint():
+            raise RuntimeError(f"checkpoint step {saved} was not persisted")
+        persist_s = time.perf_counter() - t0
+        _record("ckpt_persisted", step=saved, rank=rank,
+                wait_s=persist_s)
+        ckpt.close()
     timed = step_s[1:] or step_s
-    tokens_per_s = tokens_per_step * len(timed) / sum(timed)
+    tokens_per_s = (
+        tokens_per_step * len(timed) / sum(timed) if timed else float("nan")
+    )
     peak = (
         torch.cuda.max_memory_allocated(device) / 2**30
         if device.type == "cuda" else float("nan")
     )
-    print(f"done: {args.steps} steps, final loss {losses[-1]:.4f}, "
+    final = losses[-1] if losses else float("nan")
+    print(f"done: {args.steps} steps, final loss {final:.6f}, "
           f"{tokens_per_s:.0f} tok/s", flush=True)
+    _record("launches", rank=rank, restart=torch_env.restart_count(),
+            **kernel_launches())
+    torch_env.teardown_distributed()
     return {
         "losses": losses,
         "step_s": step_s,
@@ -217,7 +384,31 @@ def run(args) -> dict:
         "peak_mem_gib": peak,
         "finite": all(math.isfinite(x) for x in losses),
         "opt_state": opt_state,
+        "stage_s": stage_s,
+        "persist_wait_s": persist_s,
+        "data_tokens": n_tokens,
     }
+
+
+def _save(ckpt, step, params, opt_state, sampler, rank, checksums):
+    """Stage a checkpoint of ``step`` and ask the agent to persist it;
+    returns the seconds the loop was blocked, or None when the agent was
+    still copying the previous one and the step was skipped."""
+    t0 = time.perf_counter()
+    if not ckpt.save_checkpoint(
+        step, (params, (opt_state,)), storage_type=StorageType.DISK,
+        extra={"sampler": sampler.state_dict()},
+    ):
+        _record("ckpt_skipped", step=step, rank=rank)
+        return None
+    blocked = time.perf_counter() - t0
+    if ckpt.engine.stages:
+        _record(
+            "ckpt_staged", step=step, rank=rank, stage_s=blocked,
+            checksums=state_checksums((params, (opt_state,)))
+            if checksums else None,
+        )
+    return blocked
 
 
 def main(argv=None) -> int:

@@ -3,12 +3,16 @@
 
 The global batch the user asked for stays constant while the number of
 data-parallel shards changes, by recomputing the gradient accumulation
-factor for every world. This slice runs one process on one device
-(``num_shards=1``): the trainer accumulates each microbatch's gradients
-in f32, pre-scaled by 1/accum, and applies one optimizer update per
-global batch, as the JAX trainer's ``lax.scan`` step does. The
-overlapped and pipelined steps, the mesh, the MFU meter and the metrics
-registry come with later slices (ROADMAP queue 1).
+factor for every world. The shards are the processes of the
+``torch.distributed`` world (one, with no process group): each process
+feeds its own ``local_samples_per_step`` samples, accumulates each
+microbatch's gradients in f32, pre-scaled by 1/accum, into one flat
+buffer, and after the last microbatch averages that buffer and the loss
+over the world with one ``all_reduce``, so every rank applies the same
+optimizer update to the same parameters. The JAX trainer's step takes
+the same mean over the mesh's data axis. The overlapped and pipelined
+steps, the mesh, the MFU meter and the metrics registry come with later
+slices (ROADMAP queue 1).
 
 ``ElasticDistributedSampler`` and ``ElasticDataLoader`` are framework
 free and copied as they are: the same seed and epoch give the same
@@ -25,7 +29,11 @@ import torch
 
 from dlrover_tpu_torch.common.device import DeviceLike, resolve_device
 from dlrover_tpu_torch.common.log import get_logger
-from dlrover_tpu_torch.common.tree import tree_map
+from dlrover_tpu_torch.common.tree import (
+    tree_flatten,
+    tree_leaves,
+    tree_unflatten,
+)
 from dlrover_tpu_torch.trainer.async_metrics import AsyncScalarReporter
 from dlrover_tpu_torch.trainer.step import value_and_grad
 
@@ -65,6 +73,10 @@ class ElasticTrainer:
     device: where batches go; CUDA unless the caller passes
         ``device="cpu"``.
     report_fn: optional callback(TrainerReport), fed one step late.
+
+    ``num_shards`` is the ``torch.distributed`` world size when a
+    process group is initialised (its gradients are then averaged over
+    the group, a world of one included), else 1.
     """
 
     def __init__(
@@ -81,9 +93,9 @@ class ElasticTrainer:
         self.optimizer = optimizer
         self.global_batch_size = global_batch_size
         self.micro_batch_size = micro_batch_size
-        # One process on one device until the parallelism slice
-        # (ROADMAP queue 1, item 10).
-        self.num_shards = 1
+        dist = torch.distributed
+        self.distributed = dist.is_available() and dist.is_initialized()
+        self.num_shards = dist.get_world_size() if self.distributed else 1
         self.report_fn = report_fn
         self.accum_steps = gradient_accumulation_steps(
             global_batch_size, micro_batch_size, self.num_shards
@@ -103,12 +115,19 @@ class ElasticTrainer:
 
     @property
     def samples_per_step(self) -> int:
+        """Samples per optimizer update, over the whole world."""
         return self.accum_steps * self.micro_batch_size * self.num_shards
 
+    @property
+    def local_samples_per_step(self) -> int:
+        """Samples THIS process supplies per optimizer update: its
+        sharded sampler's slice of the global batch."""
+        return self.accum_steps * self.micro_batch_size
+
     def shard_microbatches(self, tokens, targets):
-        """Host batch [samples_per_step, ...] -> [accum, micro, ...]
-        tensors on the trainer's device."""
-        n, accum = self.samples_per_step, self.accum_steps
+        """This process's host batch [local_samples_per_step, ...] ->
+        [accum, micro, ...] tensors on the trainer's device."""
+        n, accum = self.local_samples_per_step, self.accum_steps
 
         def stage(x):
             x = torch.as_tensor(np.asarray(x[:n]))
@@ -120,14 +139,15 @@ class ElasticTrainer:
     def train_step(self, params, opt_state, tokens, targets):
         """One optimizer update over ``accum`` microbatches.
 
-        tokens/targets: numpy host arrays ([samples_per_step, ...]) or
-        tensors already staged as [accum, micro, ...] (use
-        :meth:`shard_microbatches`). Returns (params, opt_state, loss);
-        the loss is a device scalar, the mean over the microbatches --
-        read it with ``async_metrics.materialize``."""
+        tokens/targets: this process's numpy host arrays
+        ([local_samples_per_step, ...]) or tensors already staged as
+        [accum, micro, ...] (use :meth:`shard_microbatches`). Returns
+        (params, opt_state, loss); the loss is a device scalar, the
+        mean over the microbatches and the world -- read it with
+        ``async_metrics.materialize``."""
         if not isinstance(tokens, torch.Tensor):
             tokens, targets = self.shard_microbatches(tokens, targets)
-        expect = (self.accum_steps, self.micro_batch_size * self.num_shards)
+        expect = (self.accum_steps, self.micro_batch_size)
         if tokens.dim() < 2 or tuple(tokens.shape[:2]) != expect:
             raise ValueError(
                 f"tensor batch must be staged as [accum={expect[0]}, "
@@ -135,20 +155,29 @@ class ElasticTrainer:
                 "pass a numpy host batch or use shard_microbatches()"
             )
         accum = self.accum_steps
-        grads = None
+        flat = grads = None
         loss_sum = 0.0
         for mb in range(accum):
             loss, g = self._value_and_grad(params, tokens[mb], targets[mb])
+            if flat is None:
+                flat, grads = _flat_f32_like(g)
             # f32 accumulators, each microbatch pre-scaled by 1/accum.
-            if grads is None:
-                grads = tree_map(lambda g: (g / accum).float(), g)
-            else:
-                grads = tree_map(
-                    lambda a, g: a + (g / accum).to(a.dtype), grads, g
-                )
+            for acc, gi in zip(tree_leaves(grads), tree_leaves(g)):
+                if mb == 0:
+                    acc.copy_(gi / accum)
+                else:
+                    acc.add_((gi / accum).float())
             loss_sum = loss_sum + loss
-        params, opt_state = self.optimizer.update(grads, opt_state, params)
         loss = loss_sum / accum
+        if self.distributed:
+            # One all_reduce of the flat f32 gradients, the loss riding
+            # in its last element: every rank then holds the world's
+            # mean and applies the same update.
+            flat[-1] = loss
+            torch.distributed.all_reduce(flat)
+            flat.div_(self.num_shards)
+            loss = flat[-1].clone()
+        params, opt_state = self.optimizer.update(grads, opt_state, params)
         self.step_num += 1
         if self._reporter is not None:
             self._reporter.offer(self.step_num, loss)
@@ -174,6 +203,20 @@ class ElasticTrainer:
 
     def load_state_dict(self, state: dict) -> None:
         self.step_num = int(state.get("step_num", 0))
+
+
+def _flat_f32_like(tree):
+    """(flat, views): one f32 buffer holding every leaf of ``tree`` and
+    one more element, and a tree like ``tree`` of f32 views into it."""
+    leaves, struct = tree_flatten(tree)
+    sizes = [x.numel() for x in leaves]
+    flat = torch.empty(sum(sizes) + 1, dtype=torch.float32,
+                       device=leaves[0].device)
+    views = [
+        v.view(x.shape)
+        for v, x in zip(flat[:-1].split(sizes), leaves)
+    ]
+    return flat, tree_unflatten(struct, views)
 
 
 class ElasticDistributedSampler:

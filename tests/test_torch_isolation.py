@@ -3,7 +3,7 @@
 * No module of ``dlrover_tpu_torch`` (nor ``chip_smoke.py``) imports
   jax, jaxlib, flax, optax or anything of ``dlrover_tpu``, checked on
   the source and by importing every module with those made
-  unimportable.
+  unimportable, and none names a module of theirs to spawn.
 * Without a GPU, entry points given no device raise instead of running
   on the CPU, ``chip_smoke.py`` exits non-zero with no result line, and
   a kernel build without ``nvcc`` raises.
@@ -14,6 +14,7 @@
 import ast
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -56,6 +57,23 @@ def test_no_source_imports_jax_or_the_jax_package():
             ]
     assert not bad, bad
     assert len(_sources()) > 15
+
+
+def test_no_source_spawns_a_module_of_the_jax_package():
+    """No string in the port names a ``dlrover_tpu`` module, as a
+    ``python -m`` target (the launcher's master, the agent's trainer
+    commands) or an ``importlib`` name would."""
+    module = re.compile(r"^(dlrover_tpu|jax|optax|flax)(\.\w+)*$")
+    bad = []
+    for path in _sources():
+        tree = ast.parse(path.read_text(), filename=str(path))
+        bad += [
+            f"{path}:{node.lineno} {node.value}"
+            for node in ast.walk(tree)
+            if isinstance(node, ast.Constant)
+            and isinstance(node.value, str) and module.match(node.value)
+        ]
+    assert not bad, bad
 
 
 def test_every_module_imports_with_jax_unimportable():
