@@ -1312,10 +1312,8 @@ STEP_LINE = re.compile(
 RECORD_LINE = re.compile(r"(ckpt_\w+|killing|launches) (\{.*\})")
 
 
-def _elastic_run(work: str, data_tokens: int) -> dict:
-    """Run the launcher once; its exit code, output, steps and records.
-    ``data_tokens``: phase train's token stream, so that the steps both
-    runs take see the same samples."""
+def _elastic_run(work: str) -> dict:
+    """Run the launcher once; its exit code, output, steps and records."""
     audit = os.path.join(work, "audit")
     os.makedirs(audit)
     with open(os.path.join(audit, "sitecustomize.py"), "w") as f:
@@ -1337,7 +1335,6 @@ def _elastic_run(work: str, data_tokens: int) -> dict:
         *GPT2_ARGS, "--steps", str(ELASTIC_STEPS),
         "--checkpoint-every", str(ELASTIC_EVERY),
         "--checkpoint-dir", os.path.join(work, "ckpt"), "--checksums",
-        "--data-tokens", str(data_tokens),
     ]
     log(f"# elastic: {' '.join(cmd[1:])}")
     t0 = time.time()
@@ -1392,7 +1389,7 @@ def phase_elastic(res: dict) -> None:
     free_memory()
     work = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
     try:
-        run = _elastic_run(work, res["train"]["data_tokens"])
+        run = _elastic_run(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     tail = f"\n{run['out'][-4000:]}\n{run['err'][-4000:]}"

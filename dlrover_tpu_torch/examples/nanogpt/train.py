@@ -30,8 +30,8 @@ and the sampler's position are staged into shared memory every
 ``--checkpoint-every`` steps and after the last, persisted by the agent,
 and restored before the loop, so a trainer the agent restarts resumes
 at the checkpoint's step and sample. Without it, and outside the
-launcher, the run is the one-process loop it always was. It writes the
-agent's step-metrics file and phase marks from local rank 0.
+launcher, the run is the one-process loop it always was; under it,
+local rank 0 writes the agent's step-metrics file and phase marks.
 ``--checksums`` prints a checksum of every leaf staged and restored.
 ``auto_accelerate`` arrives with a later slice (ROADMAP queue 1).
 """
@@ -70,6 +70,7 @@ from dlrover_tpu_torch.trainer.flash_checkpoint import (
     Checkpointer,
     StorageType,
 )
+from dlrover_tpu_torch.trainer.flash_checkpoint.checkpointer import AGENT_ENV
 from dlrover_tpu_torch.trainer.flash_checkpoint.engine import flatten_named
 from dlrover_tpu_torch.trainer.profile import profiler, write_profile
 
@@ -107,11 +108,6 @@ def parse_args(argv=None):
     p.add_argument("--device", default=None,
                    help="default cuda; cpu only when asked for")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--data-tokens", type=int, default=0,
-                   help="length of the synthetic token stream (0: 200,000 "
-                   "or twice the tokens the run reads, the larger); runs "
-                   "of different lengths see the same samples only with "
-                   "the same stream")
     p.add_argument("--profile", default="",
                    help="trace the last step with torch.profiler and "
                    "write its device time by kernel to this file")
@@ -232,7 +228,12 @@ def run(args) -> dict:
     seconds, tokens per second over its steps after the first (which
     pays for cuBLAS and allocator warm-up), the accumulation factor, the
     peak device memory and the final optimizer state."""
-    lead = os.getenv("LOCAL_RANK", "0") == "0"
+    # Step metrics and phase marks are the agent's: only its local rank
+    # 0 writes them, and a run outside the launcher writes no file.
+    lead = (
+        os.getenv(AGENT_ENV, "") == "1"
+        and os.getenv("LOCAL_RANK", "0") == "0"
+    )
     if lead:
         TrainingMonitor.mark_phase("proc_start")
     device = torch_env.setup_distributed(args.device)
@@ -254,8 +255,12 @@ def run(args) -> dict:
         micro_batch_size=args.micro_batch_size,
         device=device,
     )
-    n_tokens = args.data_tokens or max(
-        200_000, 2 * args.steps * trainer.samples_per_step * cfg.block_size
+    # At least the tokens the run reads, and 200,000 for any shorter run
+    # (the sampler wraps epochs), so runs of a few steps, such as an
+    # 8-step launcher run and a 4-step run, read the same stream.
+    n_tokens = max(
+        200_000,
+        (args.steps * trainer.samples_per_step + 1) * cfg.block_size,
     )
     dataset = TokenWindows(
         synthetic_tokens(n_tokens, cfg.vocab_size, args.seed),
@@ -386,7 +391,6 @@ def run(args) -> dict:
         "opt_state": opt_state,
         "stage_s": stage_s,
         "persist_wait_s": persist_s,
-        "data_tokens": n_tokens,
     }
 
 

@@ -102,8 +102,8 @@ class Checkpointer:
     def load_checkpoint(self, like, step: Optional[int] = None):
         """Restore a committed checkpoint (the latest, or ``step=``)
         into a tree shaped like ``like``. Returns the restored state, or
-        None if there is no checkpoint; the step restored is in
-        ``last_restored_step``."""
+        None if no step is committed, and raises when a committed step
+        cannot be read; the step restored is in ``last_restored_step``."""
         res = self.engine.load(like, step=step)
         if res is None:
             return None

@@ -436,60 +436,42 @@ class CheckpointEngine:
 
     def _read_shm(self, step: int, device: torch.device
                   ) -> Optional[Tuple[Dict[str, torch.Tensor], dict]]:
-        """{name: tensor on ``device``} and extras of this host's staged
-        segment, when it holds ``step`` in whole leaves; else None.
+        """{name: tensor on ``device``} and extras of the segment this
+        engine stages into, when it holds ``step`` in whole leaves; else
+        None (and always None on a rank that does not stage: it reads
+        storage).
 
-        The staging rank reads through its own pinned view of the
-        segment, which its next save reuses; another rank pins the
-        segment for the read only. Pinned, the copies to the card run
-        at the D2H rate of staging instead of paging the segment in."""
-        own = self.stages
-        try:
-            if not own:
-                seg = SharedMemoryHandle(self._shm.shm_name)
-            elif self._shm._shm is None:
-                self._shm._shm = SharedMemoryHandle(self._shm.shm_name)
-        except FileNotFoundError:
+        The read goes through the engine's own pinned view of the
+        segment, which its next save reuses. Pinned, the copies to the
+        card run at the D2H rate of staging instead of paging the
+        segment in."""
+        if not self.stages:
             return None
-        if own:
-            seg = self._shm._shm
-        data = None
-        try:
-            buf = seg.buf
-            meta_len = int.from_bytes(bytes(buf[:_META_LEN_BYTES]),
-                                      "little")
-            if meta_len <= 0 or meta_len > len(buf):
+        if self._shm._shm is None:
+            try:
+                self._shm._shm = SharedMemoryHandle(self._shm.shm_name)
+            except FileNotFoundError:
                 return None
-            base = _META_LEN_BYTES + meta_len
-            found, entries, extra = ckpt_shm.unpack_meta(
-                bytes(buf[_META_LEN_BYTES:base]))
-            if found != step or len({e.name for e in entries}) != len(
-                    entries):
-                return None
-            if own:
-                data = self._host_buffer(0)
-                if device.type == "cuda":
-                    self._pin(data)
-            else:
-                data = torch.frombuffer(buf, dtype=torch.uint8)
-                if device.type == "cuda":
-                    torch.cuda.cudart().cudaHostRegister(
-                        data.data_ptr(), data.numel(), 0)
-            out = {
-                e.name: _tensor_from_bytes(
-                    data[base + e.offset:base + e.offset + e.nbytes], e,
-                    device)
-                for e in entries
-            }
-            if device.type == "cuda":
-                torch.cuda.current_stream(device).synchronize()
-            return out, extra
-        finally:
-            if not own:
-                if data is not None and data.is_pinned():
-                    torch.cuda.cudart().cudaHostUnregister(data.data_ptr())
-                del data
-                seg.close()
+        buf = self._shm._shm.buf
+        meta_len = int.from_bytes(bytes(buf[:_META_LEN_BYTES]), "little")
+        if meta_len <= 0 or meta_len > len(buf):
+            return None
+        base = _META_LEN_BYTES + meta_len
+        found, entries, extra = ckpt_shm.unpack_meta(
+            bytes(buf[_META_LEN_BYTES:base]))
+        if found != step or len({e.name for e in entries}) != len(entries):
+            return None
+        data = self._host_buffer(0)
+        if device.type == "cuda":
+            self._pin(data)
+        out = {
+            e.name: _tensor_from_bytes(
+                data[base + e.offset:base + e.offset + e.nbytes], e, device)
+            for e in entries
+        }
+        if device.type == "cuda":
+            torch.cuda.current_stream(device).synchronize()
+        return out, extra
 
     def _read_storage(self, step: int, device: torch.device
                       ) -> Optional[Tuple[Dict[str, torch.Tensor], dict]]:
@@ -535,7 +517,8 @@ class CheckpointEngine:
         committed step, or ``step``. Tensors come back in the dtypes
         they were saved in, on the devices of ``like``'s. Returns (step,
         state, extra), or None when no checkpoint exists; raises when
-        the checkpoint lacks a leaf of ``like`` or holds it in another
+        the committed step can be read neither from shm nor from storage,
+        or when it lacks a leaf of ``like`` or holds it in another
         shape."""
         t0 = time.monotonic()
         with obs.span("ckpt.restore"):
@@ -562,7 +545,10 @@ class CheckpointEngine:
             res = self._read_storage(found, device)
             self.last_load_source = "storage"
         if res is None:
-            return None
+            raise FileNotFoundError(
+                f"checkpoint step {found} of {self.checkpoint_dir} is in "
+                f"neither this host's shm segment nor storage "
+                f"({step_dir(self.checkpoint_dir, found)} holds no shard)")
         flat, extra = res
         missing = [n for n, _ in named if n not in flat]
         if missing:

@@ -20,7 +20,8 @@
   (``torch_env``); process ids for a world {0: 2, 1: 2}; the
   environment of each trainer the agent spawns; the group's exit code,
   and the agent waking at once on a failure; the launcher's process
-  count.
+  count; a one-process run writing no agent files; the first-step probe
+  (``tools/first_step.py``).
 """
 
 import importlib
@@ -377,6 +378,36 @@ def test_torch_env_without_agent_stays_one_process(monkeypatch):
     _agent_env(monkeypatch)
     assert torch_env.setup_distributed("cpu") == torch.device("cpu")
     assert not torch.distributed.is_initialized()
+
+
+def test_one_process_run_writes_no_agent_files(monkeypatch, tmp_path):
+    """Outside the launcher the example writes neither the agent's step
+    metrics (whose default path is shared) nor phase marks."""
+    from dlrover_tpu_torch.agent import monitor
+
+    _agent_env(
+        monkeypatch, DLROVER_TPU_JOB_NAME=f"t{uuid.uuid4().hex[:10]}",
+        DLROVER_TPU_PHASES_FILE=str(tmp_path / "phases.json"),
+    )
+    monkeypatch.delenv(monitor.METRICS_FILE_ENV, raising=False)
+    out = train.run(train.parse_args(
+        ["--smoke", "--device", "cpu", "--steps", "1"]))
+    assert out["finite"] and len(out["losses"]) == 1
+    assert not os.path.exists(monitor.default_metrics_file())
+    assert not (tmp_path / "phases.json").exists()
+
+
+def test_first_step_probe_profiles_a_run(capsys):
+    from dlrover_tpu_torch.tools import first_step
+
+    rc = first_step.main(
+        ["--top", "5", "--", "--smoke", "--device", "cpu", "--steps", "2"])
+    assert rc == 0
+    text = capsys.readouterr().out
+    assert "# first_step: " in text and "step_s [" in text
+    for window in ("imports", "set-up", "step 1", "step 2"):
+        assert f"# first_step {window} (" in text
+    assert "#   leaf " in text and "#   port " in text
 
 
 class FakeClient:

@@ -13,11 +13,13 @@
   moments, the step count) and its extras, from shm and from storage,
   and the JAX engine reads the port's checkpoint as the same arrays
   under the same names.
-* A rank other than 0 stages nothing; a checkpoint that lacks a leaf or
-  holds it in another shape is an error, not a fresh start.
+* A rank other than 0 stages nothing and restores from storage; a
+  checkpoint that lacks a leaf or holds it in another shape, or a
+  committed step whose shards are gone, is an error, not a fresh start.
 """
 
 import importlib
+import os
 import uuid
 
 import jax
@@ -41,6 +43,7 @@ from dlrover_tpu_torch.trainer.flash_checkpoint import (
 from dlrover_tpu_torch.trainer.flash_checkpoint.engine import (
     CheckpointEngine,
     flatten_named,
+    step_dir,
     unlink_shm,
 )
 
@@ -224,5 +227,44 @@ def test_restore_refuses_a_checkpoint_that_does_not_fit(tmp_path):
             ckpt.load_checkpoint({"w": torch.zeros(4), "v": torch.zeros(1)})
         with pytest.raises(ValueError, match="shape"):
             ckpt.load_checkpoint({"w": torch.zeros(5), "n": 0})
+    finally:
+        ckpt.close()
+
+
+def test_restore_of_a_committed_step_reads_storage_or_raises(tmp_path):
+    ckdir = str(tmp_path / "ckpt")
+    like = {"w": torch.zeros(4), "n": 0}
+    fresh = CheckpointEngine(ckdir, use_agent=False, global_rank=0,
+                             world_size=1)
+    try:
+        assert fresh.load(like) is None  # nothing committed: a fresh start
+    finally:
+        fresh.close()
+    ckpt = Checkpointer(ckdir)
+    try:
+        assert ckpt.save_checkpoint(2, {"w": torch.ones(4), "n": 3})
+        assert ckpt.wait_latest_checkpoint(timeout=30)
+        # A rank that does not stage reads storage, though shm holds it.
+        other = CheckpointEngine(ckdir, use_agent=False, global_rank=1,
+                                 world_size=2)
+        try:
+            step, got, _ = other.load(like)
+        finally:
+            other.close()
+        assert step == 2 and other.last_load_source == "storage"
+        assert torch.equal(got["w"], torch.ones(4)) and got["n"] == 3
+        unlink_shm(0)
+        sdir = step_dir(ckdir, 2)
+        shards = [f for f in os.listdir(sdir) if f.endswith(".ckpt")]
+        assert shards
+        for fname in shards:
+            os.remove(os.path.join(sdir, fname))
+        engine = CheckpointEngine(ckdir, use_agent=False, global_rank=0,
+                                  world_size=1)
+        try:
+            with pytest.raises(FileNotFoundError, match="step 2"):
+                engine.load(like)
+        finally:
+            engine.close()
     finally:
         ckpt.close()
