@@ -17,8 +17,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (full attention, ragged T 1000, window 256, rectangular with
    ``q_offset`` 768 and with ``q_offset`` 700, which is not a multiple
    of the kernels' 128-row tiles, a window over T 1088, which is not
-   either, lse with an lse cotangent, small and ragged shapes);
-   ``flash_attention``'s output and gradient through autograd on
+   either, lse with an lse cotangent, small and ragged shapes), and
+   the forward at the serving lane prefill's shape (batch 1, a 512-row
+   chunk at ``q_offset`` 1536 against 2048 keys, 32 heads, head_dim
+   128); ``flash_attention``'s output and gradient through autograd on
    strided views of a fused qkv tensor at each main shape, against
    dense f32 attention; the backward's dq, dk and dv bitwise equal on
    two calls at each main shape (the kernels use no atomics); and a
@@ -29,7 +31,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    kernels take), LayerNorms at E 1024 and 1032 (each side of the
    kernels' warp/block width dispatch), one row at E 4096, row counts
    that are no multiple of the rows a warp or a block takes (8193 x
-   768, 4099 x 4096) and a small RMSNorm, each plain and with the
+   768, 4099 x 4096), a small RMSNorm and the serving decode step's
+   RMSNorm (8 x 4096, a row a lane), each plain and with the
    residual add; every output (out, resid, mu, rstd, dx, dg, db) held
    to its limit; every output bitwise equal on two calls at each main
    shape; and the LayerNorm case run through the RMS variant, on rows
@@ -48,7 +51,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    library call that computes the same function
    (``scaled_dot_product_attention``, ``F.layer_norm``,
    ``F.rms_norm``; yardsticks only: the port never calls them; the add
-   variants and the quantizers have none) and the least time the card
+   variants and the quantizers have none; SDPA with the explicit mask
+   at the serving rectangle) and the least time the card
    could take; for the quantizers also the sum over GPT-2's quantized
    leaves, as one low-bit Adam step launches them, beside its bound.
 4. ``train``: GPT-2 124M at full width and depth (12 layers, 12 heads,
@@ -97,6 +101,36 @@ Phases, each of which fails the run (non-zero exit, no result line):
    RMSNorm, one step) within LOSS_TOL, the base weights unchanged, every
    LoRA ``b`` moved off zero, and the kernels launched at least as often
    as full remat implies.
+8. ``serve``: Llama-2-7B at full width and depth (random weights from
+   seed 0, bf16) answers requests through the port's control plane: a
+   ``MasterClient`` submits 16 requests (prompts of 64-3000 tokens from
+   a seeded generator, 32 new tokens each, 14 greedy and 2 at
+   temperature 0.8) to a ``JobMaster`` (port 0), whose
+   ``ServingRouter`` hands them to one mixed-role ``ReplicaWorker``
+   (8 lanes, ``max_len`` 4096, KV blocks of 16, prefill chunks of 512,
+   the default prefill budget); its ``ContinuousBatchingScheduler``
+   runs the lane prefill (K1 rectangular, K3) and the ragged decode
+   step (K3). Every request must finish by length with 32 tokens, and
+   K1 and K3 must launch at least as often as the prompts' chunks and
+   the decode ticks imply (counters zeroed just before the requests,
+   read just after). The 14 greedy requests go again through a
+   prefill-role and a decode-role ``ReplicaWorker`` sharing the
+   weights; their tokens must equal the mixed run's bitwise (7B
+   payloads, 512 KiB a prompt token, exceed the RPC's message cap, so
+   they pass between the two in this process; the first crosses the
+   wire form bitwise). Logits of the lane prefill (chunk by chunk, a
+   padded last chunk), of ``llama_prefill_chunked`` (4096 tokens,
+   chunks of 1024) and of 8 teacher-forced ragged decode steps (lanes
+   at 100..1500) must match ``llama.forward`` within the limits in
+   ``SERVE_LOGIT_*``, and logits of other positions must not. GPT-2
+   124M ``generate.generate`` (greedy, prompt 4 x 512, 64 new) must
+   give the teacher-forced forward's argmax or a token within
+   ``GEN_MARGIN`` of it. ``python -m dlrover_tpu_torch.serving.replica``
+   with its default tiny model, a subprocess on the card, must answer 2
+   requests through another master with the in-process ``generate``'s
+   greedy tokens. It prints TTFT and TPOT p50/p99, prefill and decode
+   tokens/s, the decode step's device busy share and time by kernel
+   family, peak memory, handoff bytes and install time.
 
 Then it prints the card line, one ``{"kernels": [...]}`` line, and as
 its last line ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -123,7 +157,7 @@ import uuid
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = (
     "card", "kernels", "times", "train", "elastic", "train_low_bit",
-    "train_llama_lora",
+    "train_llama_lora", "serve",
 )
 
 # Flash attention's bf16 outputs, compared element by element:
@@ -203,6 +237,13 @@ NORM_CASES = list(NORM_MAIN.values()) + [
     ("ragged_n4099_e4096", 4099, 4096, True, False),
     ("rms_n333_e256", 333, 256, True, False),
 ]
+# The serving decode step's norms: a row a lane (Llama-2-7B, 8 lanes).
+SERVE_NORM = ("decode_rms_n8_e4096", 8, 4096, True, False)
+NORM_CASES.append(SERVE_NORM)
+# The serving lane prefill's K1 call: Llama-2-7B, a 512-token chunk at
+# position 1536 of its lane (neither the key count nor the offset a
+# multiple of the kernel's tiles would need to be).
+SERVE_RECT = dict(b=1, tq=512, tk=2048, h=32, d=128, q_offset=1536)
 
 
 class SmokeFailure(RuntimeError):
@@ -347,6 +388,7 @@ def phase_kernels(res: dict) -> None:
         flash_cases(res, d)
         wrapper_autograd(d)
         free_memory()
+    serve_rect_case(res)
     norm_cases(res)
     quant_cases(res)
     log(f"# {_limits()}; quantization: bitwise")
@@ -418,6 +460,40 @@ def flash_cases(res: dict, d: int) -> None:
                 q, k, v, do, o_ref, lse_ref, delta, grads_ref, scale
             )
         del q, k, v, do, o_ref, lse_ref, grads_ref, grads, o, lse, delta
+
+
+def _serve_rect_inputs(seed):
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    s = SERVE_RECT
+    q, k, v, _, _ = _case_inputs(seed, s["b"], s["tq"], s["tk"], s["h"],
+                                 s["d"])
+    q, scale = fa._fold_scale(q, None, s["d"])  # as the model path calls it
+    return q, k, v, scale
+
+
+def serve_rect_case(res: dict) -> None:
+    """K1 forward at the serving lane prefill's shape (SERVE_RECT)
+    against its plain version, held to the flash limits."""
+    import torch
+
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    s = SERVE_RECT
+    q, k, v, scale = _serve_rect_inputs(150)
+    o_ref, lse_ref = fa.flash_attention_ref(
+        q, k, v, True, scale, None, s["q_offset"]
+    )
+    o, lse = fa._fwd_cuda(q, k, v, True, scale, None, s["q_offset"])
+    torch.cuda.synchronize()
+    o_err = _err(o, o_ref)
+    lse_abs = (lse - lse_ref).abs().max().item()
+    log(f"# parity D128 serve_rect (B=1 H=32 Tq=512 Tk=2048 q_offset=1536 "
+        f"scale={scale:.6g}): {_fmt('o', o_err)} | lse abs {lse_abs:.3e}")
+    check(_within(o_err) and lse_abs <= LSE_TOL,
+          "forward kernel disagrees with its plain version at the serving "
+          "lane prefill's shape")
+    res["max_abs_err"]["fwd128_serve"] = max(o_err[0], lse_abs)
 
 
 def wrong_mask_fails(
@@ -621,12 +697,16 @@ def norm_cases(res: dict) -> None:
             )
         )
         check(ok, f"norm kernels disagree with their plain versions on {name}")
+        fwd_keys = [k for k in errs if k.split("_")[-1] in
+                    ("out", "resid", "mu", "rstd")]
+        bwd_keys = [k for k in errs if k not in fwd_keys]
+        if name == SERVE_NORM[0]:
+            res["max_abs_err"]["norm_fwd_serve"] = max(
+                errs[k][0] for k in fwd_keys
+            )
         for path, main in NORM_MAIN.items():
             if main[0] != name:
                 continue
-            fwd_keys = [k for k in errs if k.split("_")[-1] in
-                        ("out", "resid", "mu", "rstd")]
-            bwd_keys = [k for k in errs if k not in fwd_keys]
             res["max_abs_err"][f"norm_fwd_{path}"] = max(
                 errs[k][0] for k in fwd_keys
             )
@@ -1167,6 +1247,69 @@ def quant_times() -> dict:
     return times
 
 
+def serve_times() -> dict:
+    """The serving path's two kernel calls at their shapes: K1 at the
+    lane prefill's (SERVE_RECT; library: SDPA with the explicit mask)
+    and K3's RMSNorm on the decode step's 8 x 4096 rows (library:
+    ``F.rms_norm``). Bounds: K1 reads q, k, v and writes o and the f32
+    lse, and does 4 D operations on each visible (query, key) pair; K3
+    as ``norm_bounds``."""
+    import torch
+    import torch.nn.functional as F
+
+    from dlrover_tpu_torch.ops import flash_attention as fa
+    from dlrover_tpu_torch.ops import layer_norm as ln
+
+    s = SERVE_RECT
+    q, k, v, scale = _serve_rect_inputs(151)
+    off, tq, tk, h, d = s["q_offset"], s["tq"], s["tk"], s["h"], s["d"]
+
+    def fwd():
+        return fa._fwd_cuda(q, k, v, True, scale, None, off)
+
+    mask = fa.attention_mask(tq, tk, True, None, off, q.device)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    pairs = h * (tq * off + tq * (tq + 1) // 2)
+    bound, by = _bound(
+        (2 * tq + 2 * tk) * h * d * 2 + h * tq * 4, 4 * d * pairs
+    )
+    rect = {
+        "fwd": median_ms(fwd), "fwd_device": device_ms(fwd),
+        "fwd_plain": median_ms(
+            lambda: fa.flash_attention_ref(q, k, v, True, scale, None, off),
+            reps=5,
+        ),
+        "fwd_library": median_ms(
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, scale=scale
+            )
+        ),
+        "fwd_bound": bound, "fwd_bound_by": by,
+    }
+    log("# times flash serve_rect (ms, median, B=1 Tq=512 Tk=2048 "
+        "q_offset=1536 H=32 D=128 bf16): " + json.dumps(rect))
+    name, n, e, rms, _ = SERVE_NORM
+    x, _, g, _, _ = _norm_inputs(10, n, e)
+    eps = 1e-5  # Llama's rms_eps
+
+    def norm():
+        return ln._fwd_cuda(x, None, g, None, eps, True)
+
+    gl = g.to(x.dtype)
+    bound = norm_bounds(n, e, False)[0]
+    norm_t = {
+        "fwd": median_ms(norm), "fwd_device": device_ms(norm),
+        "fwd_plain": median_ms(
+            lambda: ln.layer_norm_fwd_ref(x, None, g, None, eps, True)
+        ),
+        "fwd_library": median_ms(lambda: F.rms_norm(x, (e,), gl, eps)),
+        "fwd_bound": bound[0], "fwd_bound_by": bound[1],
+    }
+    log(f"# times norm {name} (ms, median, N={n} E={e} bf16): "
+        + json.dumps(norm_t))
+    return {"serve_rect": rect, "serve_norm": norm_t}
+
+
 def phase_times(res: dict) -> None:
     res["times"] = {
         "flash64": flash_times(64),
@@ -1174,6 +1317,7 @@ def phase_times(res: dict) -> None:
         "norm_gpt2": norm_times("gpt2"),
         "norm_llama": norm_times("llama"),
         "quant": quant_times(),
+        **serve_times(),
     }
 
 
@@ -1647,6 +1791,607 @@ def phase_train_llama_lora(res: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 8: serving Llama-2-7B through the port's control plane
+# ---------------------------------------------------------------------------
+
+SERVE = dict(lanes=8, max_len=4096, block_size=16, prefill_chunk=512)
+SERVE_REQUESTS, SERVE_SAMPLED, SERVE_NEW = 16, 2, 32
+SERVE_PROMPT = (64, 3000)  # prompt lengths, drawn from a seeded generator
+SERVE_TIMEOUT_S = 300
+# Logits of a serving program against the training forward
+# (``llama.forward``, K1/K3) on the same tokens. Per compared row:
+#   max|got - ref| <= ATOL * rms(ref),  rms(got - ref) <= RMS * rms(ref).
+# The prefills run the forward's kernels on GEMMs of hundreds of rows
+# and agree to ~3e-5 of rms on the H100; their limits are
+# SERVE_LOGIT_ATOL and SERVE_LOGIT_RMS. The decode step's GEMMs have 8
+# rows (a row a lane) where the forward's have thousands: cuBLAS runs
+# other kernels, every bf16 projection rounds differently, and with
+# random weights the gap compounds with depth (NVIDIA H100 80GB HBM3,
+# 700 W, by tools/decode_gap.py: rms of the gap 0.6-0.7% at 1 layer,
+# 1.3-1.5% at 4, 4.2-5.2% at 32, 3.6-4.4% with the plain norm and
+# attention on both sides; this phase reads 4.7-5.4%); its limits are
+# SERVE_DECODE_ATOL and SERVE_DECODE_RMS. Logits of a wrong position,
+# mask or cache slot are off by O(rms) (the must-fail comparisons:
+# 1.4x rms).
+SERVE_LOGIT_ATOL = 2.0 ** -2
+SERVE_LOGIT_RMS = 2.0 ** -5
+SERVE_DECODE_ATOL = 2.0 ** -1
+SERVE_DECODE_RMS = 2.0 ** -3
+# A greedy GPT-2 token that is not the teacher-forced forward's argmax
+# must lie within this share of the row's logit rms of that argmax:
+# random weights give near-ties, which the decode steps' rounding (as
+# above, 12 layers) may flip; a wrong decode gives gaps of O(rms).
+GEN_MARGIN = 2.0 ** -2
+GEN = dict(batch=4, prompt=512, new=64)
+
+
+def _pct(xs, q):
+    """Nearest-rank percentile (q in [0, 100])."""
+    xs = sorted(xs)
+    return xs[max(0, math.ceil(q / 100 * len(xs)) - 1)] if xs else 0.0
+
+
+def _logit_err(got, ref):
+    """(max abs error and rms error, each over rms(ref)), the worst row."""
+    got, ref = got.float().reshape(-1, got.shape[-1]), ref.float().reshape(
+        -1, ref.shape[-1])
+    rms = ref.square().mean(-1).sqrt()
+    diff = got - ref
+    worst = (diff.abs().amax(-1) / rms).max().item()
+    rms_err = (diff.square().mean(-1).sqrt() / rms).max().item()
+    return worst, rms_err
+
+
+def _logits_within(err, atol=SERVE_LOGIT_ATOL, rms=SERVE_LOGIT_RMS) -> bool:
+    return err[0] <= atol and err[1] <= rms
+
+
+def _serve_tokens(seed: int, n: int, vocab: int, lo: int, hi: int):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [
+        rng.integers(0, vocab, size=int(rng.integers(lo, hi + 1))).tolist()
+        for _ in range(n)
+    ]
+
+
+def serve_logit_checks(params, cfg) -> dict:
+    """The serving programs' logits against ``llama.forward`` on the
+    same tokens, each held to the SERVE_LOGIT limits: the lane-chunk
+    prefill chunk by chunk (a 1300-token prompt in lane 3 of an 8-lane
+    cache: chunks of 512, 512 and a final 276 padded to 512), with a
+    must-fail comparison of chunk 2 against chunk 1's rows;
+    ``llama_prefill_chunked`` (chunk 1024) on a 4096-token prompt, its
+    last logits; and 8 ragged decode steps, teacher-forced, with the 8
+    lanes at positions 100..1500 apart."""
+    import dataclasses
+
+    import torch
+
+    from dlrover_tpu_torch.models import generate, llama
+
+    ref_cfg = dataclasses.replace(cfg, remat=False)
+    dev = params["wte"].device
+    out = {}
+    chunk, lanes = SERVE["prefill_chunk"], SERVE["lanes"]
+    rope = llama.rope_table(cfg, 4096, dev)
+    with torch.no_grad():
+        # lane-chunk prefill
+        (prompt,) = _serve_tokens(21, 1, cfg.vocab_size, 1300, 1300)
+        toks = torch.tensor([prompt], device=dev)
+        ref = llama.forward(params, toks, ref_cfg)[0]
+        cache = generate._cache_for(cfg, lanes, 4096, cfg.n_kv_head, dev)
+        errs = []
+        for start in range(0, len(prompt), chunk):
+            c = min(chunk, len(prompt) - start)
+            buf = torch.zeros(1, chunk, dtype=torch.long, device=dev)
+            buf[0, :c] = toks[0, start:start + c]
+            logits, cache = generate.llama_lane_prefill_chunk(
+                params, cache, buf, 3, start, cfg, rope=rope
+            )
+            errs.append(_logit_err(logits[0, :c], ref[start:start + c]))
+            if start == chunk:
+                wrong = _logit_err(logits[0, :c], ref[:c])
+        log(
+            "# serve logits lane prefill vs forward (chunks of 512, the "
+            f"last padded): {[(round(a, 5), round(b, 5)) for a, b in errs]}"
+            f" | chunk 2 held to chunk 1's rows (must fail): "
+            f"({wrong[0]:.4f}, {wrong[1]:.4f})"
+        )
+        check(all(_logits_within(e) for e in errs),
+              "lane prefill logits disagree with the forward")
+        check(not _logits_within(wrong),
+              "the serving logit limits pass logits of other positions")
+        out["lane_prefill"] = max(max(e) for e in errs)
+        del ref, cache
+        free_memory()
+        # chunked prefill, last logits
+        (long_prompt,) = _serve_tokens(22, 1, cfg.vocab_size, 4096, 4096)
+        toks = torch.tensor([long_prompt], device=dev)
+        ref = llama.forward(params, toks, ref_cfg)[0, -1]
+        cache = generate._cache_for(cfg, 1, 4096, cfg.n_kv_head, dev)
+        last, cache = generate.llama_prefill_chunked(
+            params, cache, toks, cfg, chunk_size=1024, rope=rope
+        )
+        err = _logit_err(last[0], ref)
+        log(f"# serve logits chunked prefill (4096, chunk 1024) last row "
+            f"vs forward: ({err[0]:.5f}, {err[1]:.5f})")
+        check(_logits_within(err),
+              "chunked prefill logits disagree with the forward")
+        out["chunked_prefill"] = max(err)
+        del ref, cache, last
+        free_memory()
+        # ragged decode, teacher-forced
+        steps = 8
+        lens = [100 + 200 * i for i in range(lanes)]
+        seqs = [
+            _serve_tokens(30 + i, 1, cfg.vocab_size, n + steps, n + steps)[0]
+            for i, n in enumerate(lens)
+        ]
+        cache = generate._cache_for(cfg, lanes, 2048, cfg.n_kv_head, dev)
+        for lane, (n, seq) in enumerate(zip(lens, seqs)):
+            for start in range(0, n, chunk):
+                c = min(chunk, n - start)
+                buf = torch.zeros(1, chunk, dtype=torch.long, device=dev)
+                buf[0, :c] = torch.tensor(seq[start:start + c])
+                generate.llama_lane_prefill_chunk(
+                    params, cache, buf, lane, start, cfg, rope=rope
+                )
+        got = []
+        for s in range(steps):
+            token = torch.tensor([seq[n + s] for n, seq in zip(lens, seqs)],
+                                 device=dev)
+            pos = torch.tensor([n + s for n in lens], device=dev)
+            logits, cache = generate.llama_decode_step_ragged(
+                params, cache, token, pos, cfg, rope=rope,
+                active=torch.ones(lanes, dtype=torch.bool, device=dev),
+            )
+            got.append(logits)
+        errs, wrong = [], []
+        for lane, (n, seq) in enumerate(zip(lens, seqs)):
+            ref = llama.forward(
+                params, torch.tensor([seq], device=dev), ref_cfg
+            )[0, n - 1:n + steps]
+            lane_logits = torch.stack([g[lane] for g in got])
+            errs.append(_logit_err(lane_logits, ref[1:]))
+            wrong.append(_logit_err(lane_logits, ref[:-1]))
+        wrong = min(wrong)
+        log("# serve logits ragged decode (8 lanes at 100..1500, 8 steps) "
+            f"vs forward: {[(round(a, 5), round(b, 5)) for a, b in errs]}"
+            " | held to the rows one position back (must fail): "
+            f"({wrong[0]:.4f}, {wrong[1]:.4f})")
+        decode_limits = (SERVE_DECODE_ATOL, SERVE_DECODE_RMS)
+        check(all(_logits_within(e, *decode_limits) for e in errs),
+              "ragged decode logits disagree with the forward")
+        check(not _logits_within(wrong, *decode_limits),
+              "the decode logit limits pass logits one position back")
+        out["ragged_decode"] = max(max(e) for e in errs)
+        del cache, got
+    free_memory()
+    log(f"# serve logit limits per row: prefill max|err| <= "
+        f"{SERVE_LOGIT_ATOL} rms(ref), rms(err) <= {SERVE_LOGIT_RMS} "
+        f"rms(ref); decode {SERVE_DECODE_ATOL} and {SERVE_DECODE_RMS}")
+    return out
+
+
+def _serve_master():
+    from dlrover_tpu_torch.master.master import JobMaster
+
+    master = JobMaster(
+        port=0, node_num=1, rdzv_timeout=1.0, heartbeat_timeout=120.0,
+        monitor_interval=0.5, collect_interval=999.0,
+        health_interval=9999.0,
+        remediation_config={"interval_s": 9999.0},
+        serving_config={"progress_timeout_s": 120.0,
+                        "scale_cooldown_s": 9999.0},
+    )
+    master.prepare()
+    return master
+
+
+def _await_replicas(master, n: int, timeout_s: float, proc=None) -> None:
+    deadline = time.monotonic() + timeout_s
+    while sum(
+        r["state"] == "ready" for r in master.serving.snapshot()["replicas"]
+    ) < n:
+        check(time.monotonic() < deadline,
+              f"{n} replica(s) did not register in {timeout_s} s")
+        check(proc is None or proc.poll() is None,
+              "the replica process exited before it registered")
+        time.sleep(0.1)
+
+
+def _serve_requests(params_vocab: int) -> list:
+    """(request id, prompt, temperature) of the 16 served requests."""
+    prompts = _serve_tokens(8, SERVE_REQUESTS, params_vocab, *SERVE_PROMPT)
+    return [
+        (f"s{i}", p, 0.8 if i >= SERVE_REQUESTS - SERVE_SAMPLED else 0.0)
+        for i, p in enumerate(prompts)
+    ]
+
+
+def _await_results(client, ids, timeout_s: float) -> dict:
+    deadline = time.monotonic() + timeout_s
+    while True:
+        results = {rid: client.serve_result(rid) for rid in ids}
+        if all(r.state in ("done", "failed") for r in results.values()):
+            return results
+        check(time.monotonic() < deadline,
+              f"requests unfinished after {timeout_s} s: " + str({
+                  k: r.state for k, r in results.items()
+                  if r.state != "done"}))
+        time.sleep(0.2)
+
+
+def serve_mixed(params, cfg, res: dict) -> tuple:
+    """The 16 requests through the port's JobMaster, its ServingRouter
+    and one mixed-role ReplicaWorker; the launch counts of this run."""
+    from dlrover_tpu_torch.agent.master_client import MasterClient
+    from dlrover_tpu_torch.serving.replica import ReplicaWorker
+
+    master = _serve_master()
+    worker = ReplicaWorker(
+        master.addr, 0, params, cfg, pull_batch=SERVE["lanes"], **SERVE
+    )
+    client = MasterClient(master.addr, node_id=-1)
+    try:
+        worker.start()
+        _await_replicas(master, 1, 60)
+        reqs = _serve_requests(cfg.vocab_size)
+        reset_counts()
+        t0 = time.perf_counter()
+        for rid, prompt, temp in reqs:
+            check(client.serve_submit(
+                prompt, max_new_tokens=SERVE_NEW, temperature=temp,
+                request_id=rid,
+            ).accepted, f"request {rid} refused")
+        results = _await_results(client, [r[0] for r in reqs],
+                                 SERVE_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        stats = worker.scheduler.stats()
+    finally:
+        worker.stop()
+        client.close()
+        master.stop()
+    for rid, prompt, temp in reqs:
+        r = results[rid]
+        check(r.state == "done" and r.finish_reason == "length"
+              and len(r.tokens) == SERVE_NEW
+              and all(0 <= t < cfg.vocab_size for t in r.tokens),
+              f"request {rid} ended {r.state}/{r.finish_reason} "
+              f"{r.error} with {len(r.tokens)} tokens")
+    chunk = SERVE["prefill_chunk"]
+    chunks = sum(-(-len(p) // chunk) for _, p, _ in reqs)
+    decode_ticks = -(-SERVE_REQUESTS * (SERVE_NEW - 1) // SERVE["lanes"])
+    want = {"flash_fwd": cfg.n_layer * chunks,
+            "norm_fwd": 2 * cfg.n_layer * (chunks + decode_ticks)}
+    log(f"# serve llama2-7b mixed: {SERVE_REQUESTS} requests "
+        f"({sum(len(p) for _, p, _ in reqs)} prompt tokens in {chunks} "
+        f"chunks, {SERVE_NEW} new each, {SERVE_SAMPLED} at temperature "
+        f"0.8) in {wall:.2f} s | launches {launches} (at least {want}) | "
+        "scheduler " + json.dumps({k: stats[k] for k in (
+            "steps", "preempted_total", "completed_total",
+            "tokens_generated")}))
+    check(all(launches[k] >= n for k, n in want.items()),
+          f"serving launches {launches} below {want}")
+    ttft = [results[r[0]].ttft_s for r in reqs]
+    tpot = [results[r[0]].tpot_s for r in reqs]
+    latency = [results[r[0]].latency_s for r in reqs]
+    res["serve"] = {
+        "wall_s": wall, "launches": launches,
+        "ttft_p50_s": _pct(ttft, 50), "ttft_p99_s": _pct(ttft, 99),
+        "tpot_p50_s": _pct(tpot, 50), "tpot_p99_s": _pct(tpot, 99),
+        "latency_p50_s": _pct(latency, 50), "latency_p99_s": _pct(latency, 99),
+    }
+    greedy = {rid: results[rid].tokens for rid, _, t in reqs if t == 0.0}
+    return worker.scheduler, reqs, greedy
+
+
+def serve_disaggregated(params, cfg, reqs, greedy, res: dict) -> None:
+    """The greedy requests again through a prefill-role and a
+    decode-role ReplicaWorker sharing the parameter tensors; their
+    tokens must equal the mixed leg's bitwise. At 7B a handoff carries
+    512 KiB of KV a prompt token (up to ~1.5 GB here), past the RPC's
+    256 MB message cap and the router's 64 MB staging budget, so the
+    payloads go from one scheduler to the other in this process; the
+    first crosses the wire form (pack, unpack) and must come back
+    bitwise."""
+    import torch
+
+    from dlrover_tpu_torch.serving import handoff
+    from dlrover_tpu_torch.serving.replica import ReplicaWorker
+    from dlrover_tpu_torch.serving.scheduler import ServeRequest
+
+    kw = {k: v for k, v in SERVE.items() if k != "lanes"}
+    pre = ReplicaWorker("127.0.0.1:1", 1, params, cfg, lanes=2,
+                        role="prefill", **kw)
+    dec = ReplicaWorker("127.0.0.1:1", 2, params, cfg, lanes=SERVE["lanes"],
+                        role="decode", **kw)
+    todo = [r for r in reqs if r[0] in greedy]
+    for rid, prompt, _ in todo:
+        pre.scheduler.submit(ServeRequest(
+            request_id=rid, prompt=prompt, max_new_tokens=SERVE_NEW))
+    done, nbytes, largest, wired = {}, 0, None, False
+    t0 = time.perf_counter()
+    for _ in range(20000):
+        for c in pre.scheduler.step():
+            check(c.finish_reason == "handoff", f"{c.request_id} {c.error}")
+            p = c.handoff
+            nbytes += p.nbytes()
+            if largest is None or p.nbytes() > largest.nbytes():
+                largest = p
+            if not wired:
+                back = handoff.unpack(handoff.pack(p))
+                check(torch.equal(back.k.view(torch.int16),
+                                  p.k.view(torch.int16))
+                      and torch.equal(back.v.view(torch.int16),
+                                      p.v.view(torch.int16)),
+                      "a 7B handoff does not cross the wire form bitwise")
+                p, wired = back, True
+            dec.scheduler.submit_handoff(p)
+        for c in dec.scheduler.step():
+            done[c.request_id] = c
+        if len(done) == len(todo):
+            break
+    wall = time.perf_counter() - t0
+    same = sum(done[rid].tokens == greedy[rid] for rid, _, _ in todo)
+    # The install of the largest payload, timed alone.
+    dev = params["wte"].device
+    sched = dec.scheduler
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    k = torch.as_tensor(largest.k).to(dev, sched._cache.k.dtype)
+    v = torch.as_tensor(largest.v).to(dev, sched._cache.v.dtype)
+    sched._install_fn(sched._cache, k, v, 0)
+    torch.cuda.synchronize()
+    install_s = time.perf_counter() - t1
+    log(f"# serve llama2-7b disaggregated (prefill lanes 2, decode lanes "
+        f"{SERVE['lanes']}): {len(done)}/{len(todo)} done in {wall:.2f} s, "
+        f"{same} bitwise equal to the mixed leg | handoff bytes {nbytes} "
+        f"({nbytes / len(todo) / 2**20:.1f} MiB a request) | install of "
+        f"the largest ({largest.nbytes() / 2**20:.1f} MiB, prompt "
+        f"{largest.prompt_len}) {install_s * 1e3:.2f} ms host-to-device "
+        "and copy")
+    check(same == len(todo) == len(done),
+          "disaggregated tokens differ from the mixed leg's")
+    res["serve"].update(handoff_bytes=nbytes, install_ms=install_s * 1e3,
+                        install_bytes=largest.nbytes())
+    pre.client.close()
+    dec.client.close()
+
+
+def serve_rates(params, cfg, sched, res: dict) -> None:
+    """Prefill tokens/s (a 4096-token prompt in chunks of 512 into one
+    lane), decode tokens/s with all 8 lanes busy (at the served mix's
+    positions, each step ending in its token copy, as the loop does),
+    and the decode step's device busy share and time by kernel family
+    (torch.profiler over 8 steps; busy = device time a step over the
+    unprofiled step's wall time)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dlrover_tpu_torch.trainer.profile import kernel_family
+
+    dev = params["wte"].device
+    chunk, lanes = SERVE["prefill_chunk"], SERVE["lanes"]
+    (prompt,) = _serve_tokens(40, 1, cfg.vocab_size, 4096, 4096)
+    toks = torch.tensor([prompt], device=dev)
+    with torch.no_grad():
+        def prefill_all():
+            for start in range(0, 4096, chunk):
+                sched._prefill_fn(params, sched._cache,
+                                  toks[:, start:start + chunk], 0, start)
+        prefill_all()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill_all()
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        rng = np.random.default_rng(41)
+        pos = torch.tensor(rng.integers(*SERVE_PROMPT, size=lanes),
+                           device=dev)
+        token = torch.tensor(rng.integers(0, cfg.vocab_size, size=lanes),
+                             device=dev)
+        temps = torch.zeros(lanes, device=dev)
+        active = torch.ones(lanes, dtype=torch.bool, device=dev)
+
+        def step():
+            tok, _ = sched._decode_fn(params, sched._cache, token, pos,
+                                      temps, active)
+            return tok.cpu()
+
+        for _ in range(3):
+            step()
+        n = 16
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        step_s = (time.perf_counter() - t0) / n
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(8):
+                step()
+        # The host's side: operators by self CPU time (the profiler's
+        # own cost inflates it; the shares are what it shows).
+        with profile(activities=[ProfilerActivity.CPU]) as host:
+            for _ in range(4):
+                step()
+    fams, busy = {}, 0.0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            t = e.self_device_time_total / 1e3 / 8
+            busy += t
+            fams[kernel_family(e.key)] = fams.get(kernel_family(e.key), 0) + t
+    ops = sorted(
+        (e for e in host.key_averages() if e.key.startswith("aten::")),
+        key=lambda e: -e.self_cpu_time_total,
+    )
+    host_ms = sum(e.self_cpu_time_total for e in ops) / 1e3 / 4
+    top = {
+        e.key: [e.count // 4, round(e.self_cpu_time_total / 1e3 / 4, 3)]
+        for e in ops[:8]
+    }
+    calls = sum(e.count for e in ops) // 4
+    log(f"# serve decode step host (profiled, a step): {calls} aten calls, "
+        f"{host_ms:.3f} ms of their self time; the top [calls, ms]: "
+        + json.dumps(top))
+    res["serve"].update(
+        prefill_tokens_per_s=4096 / prefill_s,
+        decode_tokens_per_s=lanes / step_s, decode_step_ms=step_s * 1e3,
+        decode_device_ms=busy, decode_busy_share=busy / (step_s * 1e3),
+        decode_family_ms=fams,
+    )
+    log(f"# serve llama2-7b rates: prefill {4096 / prefill_s:.1f} tokens/s "
+        f"(4096 tokens, chunks of {chunk}, one lane) | decode "
+        f"{lanes / step_s:.1f} tokens/s (8 lanes busy, step "
+        f"{step_s * 1e3:.3f} ms) | decode step device {busy:.3f} ms, "
+        f"busy share {busy / (step_s * 1e3):.3f} | by family (ms): "
+        + json.dumps({k: round(v, 4) for k, v in sorted(fams.items())}))
+
+
+def serve_gpt2_generate(res: dict) -> None:
+    """GPT-2 124M ``generate.generate``, greedy, prompt [4, 512], 64 new
+    tokens, through K1 (prefill) and K3 (every block norm); each token
+    the teacher-forced ``gpt.forward`` argmax, or within GEN_MARGIN x
+    rms(row) of it."""
+    import dataclasses
+
+    import torch
+
+    from dlrover_tpu_torch.models import generate, gpt
+
+    cfg = gpt.GPTConfig.gpt2()
+    params = gpt.init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (GEN["batch"], GEN["prompt"]),
+                           generator=gen, device="cuda")
+    t0 = time.perf_counter()
+    out = generate.generate(params, cfg, prompt, GEN["new"], temperature=0.0)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    check(out.shape == (GEN["batch"], GEN["prompt"] + GEN["new"]),
+          f"generate returned {tuple(out.shape)}")
+    with torch.no_grad():
+        logits = gpt.forward(params, out[:, :-1],
+                             dataclasses.replace(cfg, remat=False))
+    rows = logits[:, GEN["prompt"] - 1:]
+    new = out[:, GEN["prompt"]:]
+    best = rows.argmax(-1)
+    gap = rows.gather(-1, best[..., None]) - rows.gather(-1, new[..., None])
+    rms = rows.square().mean(-1, keepdim=True).sqrt()
+    share = (gap / rms).max().item()
+    exact = int((best == new).sum())
+    log(f"# serve gpt2 generate (greedy, prompt {GEN['batch']}x"
+        f"{GEN['prompt']}, {GEN['new']} new) in {gen_s:.2f} s: {exact}/"
+        f"{new.numel()} tokens the forward's argmax, the worst gap "
+        f"{share:.5f} of the row's rms (limit {GEN_MARGIN})")
+    check(share <= GEN_MARGIN, "generated tokens stray from the forward")
+    res["serve"]["gpt2_exact"] = exact
+
+
+def _spawn_tiny_replica(addr: str, work: str):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [REPO] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    log_path = os.path.join(work, "replica.log")
+    with open(log_path, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "dlrover_tpu_torch.serving.replica",
+             "--master", addr, "--replica_id", "1"],
+            cwd=REPO, env=env, stdout=f, stderr=subprocess.STDOUT,
+        )
+    return proc, log_path
+
+
+def serve_cli(master, proc, log_path) -> None:
+    """``python -m dlrover_tpu_torch.serving.replica --master ...
+    --replica_id 1``, its default tiny model on the card, answers 2
+    requests through the master: the in-process ``generate``'s greedy
+    tokens on the same seed's model."""
+    import torch
+
+    from dlrover_tpu_torch.agent.master_client import MasterClient
+    from dlrover_tpu_torch.models import generate
+    from dlrover_tpu_torch.serving.replica import build_tiny_model
+
+    client = MasterClient(master.addr, node_id=-1)
+    try:
+        _await_replicas(master, 1, 120, proc)
+        prompts = {"cli-a": [5, 1, 7], "cli-b": [9, 9, 2, 4, 8, 3]}
+        for rid, p in prompts.items():
+            check(client.serve_submit(p, max_new_tokens=8,
+                                      request_id=rid).accepted,
+                  f"{rid} refused")
+        results = _await_results(client, list(prompts), 120)
+    finally:
+        client.close()
+    params, cfg = build_tiny_model(0, block_size=64, device="cuda")
+    for rid, p in prompts.items():
+        want = generate.generate(params, cfg, torch.tensor([p]).cuda(), 8,
+                                 temperature=0.0)[0, len(p):].tolist()
+        check(results[rid].state == "done" and results[rid].tokens == want,
+              f"the replica CLI answered {rid} with {results[rid].tokens} "
+              f"({results[rid].state} {results[rid].error}), want {want}")
+    log(f"# serve replica CLI (tiny Llama on the card, pid {proc.pid}): "
+        f"{len(prompts)} requests answered, greedy tokens the in-process "
+        "generate's")
+
+
+def phase_serve(res: dict) -> None:
+    import torch
+
+    from dlrover_tpu_torch.models import llama
+
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    work = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    cli_master = _serve_master()
+    proc, log_path = _spawn_tiny_replica(cli_master.addr, work)
+    try:
+        cfg = llama.LlamaConfig.llama2_7b()
+        params = llama.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"
+        )
+        res["serve_logits"] = serve_logit_checks(params, cfg)
+        sched, reqs, greedy = serve_mixed(params, cfg, res)
+        serve_rates(params, cfg, sched, res)
+        del sched
+        free_memory()
+        serve_disaggregated(params, cfg, reqs, greedy, res)
+        del params
+        free_memory()
+        serve_gpt2_generate(res)
+        serve_cli(cli_master, proc, log_path)
+    except BaseException:
+        with open(log_path) as f:
+            log("# replica CLI log tail:\n" + f.read()[-3000:])
+        raise
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=15)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        cli_master.stop()
+        shutil.rmtree(work, ignore_errors=True)
+    s = res["serve"]
+    s["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log("# serve llama2-7b: " + json.dumps({
+        k: s[k] for k in (
+            "ttft_p50_s", "ttft_p99_s", "tpot_p50_s", "tpot_p99_s",
+            "latency_p50_s", "latency_p99_s", "prefill_tokens_per_s",
+            "decode_tokens_per_s", "decode_step_ms", "decode_device_ms",
+            "decode_busy_share", "peak_mem_gib", "handoff_bytes",
+            "install_ms", "launches")
+    }))
+    free_memory()
+
+
+# ---------------------------------------------------------------------------
 
 
 def kernels_line(res: dict) -> dict:
@@ -1698,6 +2443,18 @@ def kernels_line(res: dict) -> dict:
             "dlrover_tpu/ops/layer_norm.py:88", launches["norm_bwd"],
             errs[f"norm_bwd_{path}"], t, "bwd",
         )
+    served = res["serve"]["launches"]
+    entry(
+        "flash_attention_fwd rect D128 B1 tq512 tk2048 q_offset1536 "
+        "(serve lane prefill)", flash_src,
+        "dlrover_tpu/ops/flash_attention.py:148", served["flash_fwd"],
+        errs["fwd128_serve"], times["serve_rect"], "fwd",
+    )
+    entry(
+        f"layer_norm_fwd {SERVE_NORM[0]} (serve decode)", norm_src,
+        "dlrover_tpu/ops/layer_norm.py:65", served["norm_fwd"],
+        errs["norm_fwd_serve"], times["serve_norm"], "fwd",
+    )
     quant_src = "dlrover_tpu_torch/csrc/quantization.cu"
     q_file = "dlrover_tpu/ops/quantization.py"
     # name, optimizer, counter, times key, error keys, TPU kernel line

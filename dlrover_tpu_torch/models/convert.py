@@ -48,6 +48,19 @@ def params_from_jax(tree: Dict[str, Any], device: DeviceLike = None):
     return _map(leaf, tree)
 
 
+def cache_from_jax(cache, device: DeviceLike = None):
+    """A JAX ``KVCache`` (numpy ``k``/``v`` of ``[L, B, T, H_kv, D]``)
+    -> the port's ``generate.KVCache`` of the same values, on its
+    head-major storage."""
+    from dlrover_tpu_torch.models.generate import KVCache
+
+    def leaf(a):
+        t = params_from_jax({"a": a}, device)["a"]
+        return t.transpose(2, 3).contiguous().transpose(2, 3)
+
+    return KVCache(k=leaf(cache.k), v=leaf(cache.v))
+
+
 def params_to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
     """Nested dict of tensors -> nested dict of numpy arrays. bf16 and
     f16 leaves come back as float32 (exact); ``jnp.asarray(x, dtype)``

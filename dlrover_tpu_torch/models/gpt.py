@@ -213,6 +213,18 @@ def _block(x, lp, cfg: GPTConfig, attn_fn):
     return x
 
 
+def use_flash_attention(cfg, device=None) -> bool:
+    """Whether attention runs the flash kernels (K1/K2,
+    ``ops/flash_attention.py``): ``cfg.use_flash_attention`` when set,
+    else on CUDA from 512 context up."""
+    if cfg.use_flash_attention is not None:
+        return bool(cfg.use_flash_attention)
+    return (
+        torch.device(device or "cpu").type == "cuda"
+        and cfg.block_size >= 512
+    )
+
+
 def default_attention_for(cfg: GPTConfig, device=None) -> Callable:
     """The attention implementation for this config on ``device``:
     the flash kernels on CUDA from 512 context up (None), or as
@@ -223,14 +235,11 @@ def default_attention_for(cfg: GPTConfig, device=None) -> Callable:
             "attn_blocks tunes the TPU kernel's tiles; the CUDA kernels "
             "choose their own tiles for each head_dim"
         )
-    use_flash = cfg.use_flash_attention
-    if use_flash is None:
-        use_flash = (
-            torch.device(device or "cpu").type == "cuda"
-            and cfg.block_size >= 512
-        )
     window = getattr(cfg, "sliding_window", None)
-    fn = flash_attention if use_flash else _default_attention
+    fn = (
+        flash_attention if use_flash_attention(cfg, device)
+        else _default_attention
+    )
     return functools.partial(fn, causal=cfg.causal, window=window)
 
 

@@ -25,19 +25,28 @@ On the wire the payload rides the existing complete/pull RPC seam
 ``ServeWorkItem.handoff`` down to a decode replica) as a msgpack-safe
 dict: raw little-endian bytes + dtype + shape, no pickle.
 
-This copy leaves out ``make_install_fn``, the decode replica's jitted
-install of a payload into its device cache; it is ported with the
-decode and serving slice.
+In this port the payload's ``k``/``v`` are CPU tensors (the export is
+one device-to-host copy). A bf16 cache travels as its raw 16-bit words
+under the dtype name ``"bfloat16"``: the bytes and the name the JAX
+package writes through ``ml_dtypes``, so a payload packed by either
+package unpacks bitwise in the other. Unpacking rebuilds bf16 by a bit
+cast of those words to ``torch.bfloat16`` and needs no ``ml_dtypes``.
+The install (:func:`make_install_fn`) is an in-place copy on the
+device into one lane of the decode replica's cache.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import TYPE_CHECKING, Dict, List, Optional
 
 import numpy as np
 
 from dlrover_tpu_torch import obs
+
+# The master imports this module and never needs torch.
+if TYPE_CHECKING:
+    import torch
 
 _HANDOFF_TOTAL = obs.counter(
     "dlrover_serve_handoff_total",
@@ -85,7 +94,7 @@ def observe_staged_wait(seconds: float) -> None:
 class HandoffPayload:
     """One completed prefill, ready to decode elsewhere.
 
-    ``k``/``v`` are host arrays of shape ``[L, P_pad, H_kv, D]``
+    ``k``/``v`` are CPU tensors of shape ``[L, P_pad, H_kv, D]``
     (block-granular: ``P_pad`` is the prompt length rounded up to the
     exporter's block size). ``first_token`` is the token the prefill
     replica sampled from the last real prompt position — it has NOT
@@ -100,8 +109,8 @@ class HandoffPayload:
     max_new_tokens: int
     temperature: float
     first_token: int
-    k: np.ndarray
-    v: np.ndarray
+    k: torch.Tensor
+    v: torch.Tensor
     ttft_s: float = 0.0
     phases: Dict[str, float] = dataclasses.field(default_factory=dict)
     trace: Dict[str, str] = dataclasses.field(default_factory=dict)
@@ -131,8 +140,8 @@ def export_handoff(
     role's product IS host-shippable KV."""
     pad = -(-prompt_len // block_size) * block_size
     pad = min(pad, cache.k.shape[2])
-    k = np.asarray(cache.k[:, lane, :pad])
-    v = np.asarray(cache.v[:, lane, :pad])
+    k = cache.k[:, lane, :pad].cpu().contiguous()
+    v = cache.v[:, lane, :pad].cpu().contiguous()
     note_outcome("exported")
     return HandoffPayload(
         request_id=req.request_id,
@@ -151,19 +160,36 @@ def export_handoff(
 # -- wire form --------------------------------------------------------------
 
 
-def _pack_array(a: np.ndarray) -> dict:
-    a = np.ascontiguousarray(a)
+# bf16 on the wire: its raw 16-bit words under the dtype's own name.
+_BF16 = "bfloat16"
+
+
+def _pack_array(a) -> dict:
+    """A tensor or a numpy array -> its wire form."""
+    import torch
+
+    t = torch.as_tensor(a).detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        name, t = _BF16, t.view(torch.int16)
+    else:
+        name = str(t.dtype).removeprefix("torch.")
     return {
-        "dtype": str(a.dtype),
-        "shape": list(a.shape),
-        "data": a.tobytes(),
+        "dtype": name,
+        "shape": list(t.shape),
+        "data": t.numpy().tobytes(),
     }
 
 
-def _unpack_array(d: dict) -> np.ndarray:
-    return np.frombuffer(
-        d["data"], dtype=np.dtype(d["dtype"])
-    ).reshape(d["shape"])
+def _unpack_array(d: dict) -> "torch.Tensor":
+    import torch
+
+    if d["dtype"] == _BF16:
+        words = np.frombuffer(d["data"], dtype=np.int16)
+        return torch.from_numpy(words.copy()).view(
+            torch.bfloat16
+        ).reshape(d["shape"])
+    a = np.frombuffer(d["data"], dtype=np.dtype(d["dtype"]))
+    return torch.from_numpy(a.copy()).reshape(d["shape"])
 
 
 def pack(payload: HandoffPayload) -> dict:
@@ -216,3 +242,19 @@ def payload_nbytes(wire: dict) -> int:
         data = arr.get("data", b"")
         n += len(data)
     return n
+
+
+def make_install_fn():
+    """The decode replica's install: copy a payload's ``[L, P_pad, H_kv,
+    D]`` KV into lane ``lane`` of the shared cache at positions ``[0,
+    P_pad)``, in place on the cache's device; every other lane is
+    untouched. The payload arrives as tensors already on that device
+    and of the cache's dtype."""
+
+    def install(cache, k_chunk, v_chunk, lane):
+        p = k_chunk.shape[1]
+        cache.k[:, lane, :p].copy_(k_chunk)
+        cache.v[:, lane, :p].copy_(v_chunk)
+        return cache
+
+    return install

@@ -45,6 +45,7 @@ VERBATIM = [
     "obs/goodput.py", "obs/timeseries.py", "obs/health.py",
     "obs/capacity.py", "obs/stall.py", "obs/exposition.py",
     "serving/router.py", "serving/kv_pool.py",
+    "agent/replica_supervisor.py",
 ]
 
 # module: (changed definitions, left-out definitions, added, reason)
@@ -72,16 +73,30 @@ PARTIAL = {
         "analysis) raises until ROADMAP queue 1 item 7",
     ),
     "serving/scheduler.py": (
-        {"<module docstring>"}, {"_Seq", "ContinuousBatchingScheduler"},
-        set(),
-        "only the request types, roles and metrics the master's router "
-        "imports; the decode engine runs jitted device programs and "
-        "comes with ROADMAP queue 1 item 4",
+        {"<module docstring>",
+         "ContinuousBatchingScheduler._build_programs",
+         "ContinuousBatchingScheduler._admit_handoffs",
+         "ContinuousBatchingScheduler._prefill_tick",
+         "ContinuousBatchingScheduler._decode_tick"},
+        set(), set(),
+        "the prefill, ragged decode and install programs are eager "
+        "torch on the parameters' device (sampling from a "
+        "torch.Generator there, no PRNG key to split); the chunk and "
+        "token vectors cross as torch tensors, the sampled tokens and "
+        "a finished prompt's logits row come back through .cpu()",
     ),
     "serving/handoff.py": (
-        {"<module docstring>"}, {"make_install_fn"}, set(),
-        "the jitted install of a payload into a device KV cache comes "
-        "with ROADMAP queue 1 item 4",
+        {"<module docstring>", "HandoffPayload", "HandoffPayload.k",
+         "HandoffPayload.v", "export_handoff", "_pack_array",
+         "_unpack_array", "make_install_fn"},
+        {"stmt:from typing import Dict, List, Optional"},
+        {"_BF16", "stmt:from typing import TYPE_CHECKING, Dict, List, "
+         "Optional", "stmt:if TYPE_CHECKING:\n    import torch"},
+        "payload KV are CPU tensors (export copies with .cpu(), which a "
+        "bf16 or CUDA cache needs); bf16 crosses the wire as raw 16-bit "
+        "words named 'bfloat16', unpacked by a bit cast without "
+        "ml_dtypes; the install is an in-place copy into one lane; "
+        "torch is imported only where used (the master never needs it)",
     ),
 }
 
@@ -118,6 +133,18 @@ PORTS = {
     "trainer/flash_checkpoint/__init__.py": (
         "trainer/flash_checkpoint/__init__.py", set(),
         "the port's engine and checkpointer",
+    ),
+    "models/generate.py": (
+        "models/generate.py", set(),
+        "eager torch: the cache is written in place on head-major "
+        "storage, the layers and positions loop in Python, prefill and "
+        "the lane prefill run K1/K3 on CUDA, sampling takes a "
+        "torch.Generator",
+    ),
+    "serving/replica.py": (
+        "serving/replica.py", set(),
+        "the model on a device the caller names (--device, the GPU by "
+        "default); restart_in_place frees the old KV cache first",
     ),
 }
 

@@ -120,6 +120,7 @@ def test_entry_points_without_device_raise(no_gpu):
     from dlrover_tpu_torch.models import convert, gpt, llama
     from dlrover_tpu_torch.optim.adamw import AdamW
     from dlrover_tpu_torch.optim.low_bit import state_from_jax
+    from dlrover_tpu_torch.serving import replica
     from dlrover_tpu_torch.trainer.elastic_trainer import ElasticTrainer
 
     tiny = gpt.GPTConfig(
@@ -137,6 +138,9 @@ def test_entry_points_without_device_raise(no_gpu):
         lambda: train.main(["--smoke", "--steps", "1", "--optimizer",
                             "adam8bit"]),
         lambda: state_from_jax(({"count": 0, "mu": {}, "nu": {}},)),
+        lambda: replica.build_tiny_model(0),
+        lambda: replica.main(["--master", "127.0.0.1:1", "--replica_id",
+                              "0"]),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
