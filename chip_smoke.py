@@ -20,13 +20,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
    either, lse with an lse cotangent, small and ragged shapes), and
    the forward at the serving lane prefill's shape (batch 1, a 512-row
    chunk at ``q_offset`` 1536 against 2048 keys, 32 heads, head_dim
-   128); ``flash_attention``'s output and gradient through autograd on
+   128), and forward and backward at the shapes of the GLM, BERT and
+   MoE phases (``SLICE_FLASH``: ChatGLM3's prefix square at p 1000,
+   non-causal, and its suffix rectangle, 1048 queries at ``q_offset``
+   1000 against 2048 keys, both batch 2 with 32 heads of 128;
+   BERT-large's batch 16, T 512, 16 heads of 64, non-causal; the
+   Mixtral shape's batch 1, T 4096, causal); ``flash_attention``'s
+   output and gradient through autograd on
    strided views of a fused qkv tensor at each main shape, against
    dense f32 attention; the backward's dq, dk and dv bitwise equal on
    two calls at each main shape (the kernels use no atomics); and a
    mask that drops keys of the last rows must fail the same limits.
    Fused norms (K3, K4): LayerNorm with bias at the GPT-2 shape (8192
-   rows x 768), RMSNorm at the Llama shape (8192 x 4096), a ragged
+   rows x 768), RMSNorm at the Llama shape (8192 x 4096), LayerNorm
+   with bias at BERT-large's 8192 x 1024, RMSNorm at ChatGLM3's and the
+   Mixtral shape's 4096 x 4096, a ragged
    1000 x 128 LayerNorm, a 1024 x 8192 LayerNorm (the widest row the
    kernels take), LayerNorms at E 1024 and 1032 (each side of the
    kernels' warp/block width dispatch), one row at E 4096, row counts
@@ -131,6 +139,44 @@ Phases, each of which fails the run (non-zero exit, no result line):
    greedy tokens. It prints TTFT and TPOT p50/p99, prefill and decode
    tokens/s, the decode step's device busy share and time by kernel
    family, peak memory, handoff bytes and install time.
+9. ``train_glm``: ChatGLM3-6B at full width and depth (28 layers, 32
+   heads over 2 kv groups, n_embd 4096, ffn 13696, vocab 65024, qkv
+   bias, half-dim rotary, bf16, full remat; random weights from seed
+   0), LoRA rank 8 with AdamW 1e-3 on ``glm.prefix_lm_loss_fn`` at T
+   2048, batch 2, 3 steps at each of two prefix lengths (1024, and
+   1000), through the prefix composition (K1 non-causal on the prefix
+   square, K1 causal on the suffix rectangle at ``q_offset`` = the
+   prefix, K2 for both) and K3/K4. Every loss finite, the first within
+   LOSS_TOL of the plain path's (dense prefix-LM attention, plain
+   RMSNorm), the base unchanged, every LoRA ``b`` moved, the kernels
+   launched as the layers and remat imply. Then ``generate.generate``
+   on 2 prompts of 512 tokens (bidirectional prefill), 32 new greedy
+   tokens, each ``glm.prefix_lm_forward``'s argmax or within
+   ``GEN_MARGIN`` of it.
+10. ``train_bert``: BERT-large at full size (24 layers, 16 heads,
+   n_embd 1024, vocab 30522, T 512, bf16, full remat): 4 AdamW 1e-4
+   steps of ``bert.mlm_loss_fn`` on ``mask_tokens`` corruption of a
+   seeded Zipfian stream at batch 16 (K1/K2 non-causal at head_dim 64,
+   K3/K4 LayerNorm with bias at E 1024): the first loss ln(30522)
+   within 0.1 and within LOSS_TOL of the plain path's, the last below
+   the first, the launches as full remat implies; then 2 steps of
+   ``classifier_loss_fn`` with 2 classes, every loss finite.
+11. ``moe``: the Mixtral-8x7B shape (n_embd 4096, 32 heads over 8 kv
+   heads, 8 SwiGLU experts of 14336, top-2, vocab 32000, bf16) at full
+   width and 4 of its 32 layers: 3 LoRA steps (rank 8, the experts'
+   ``wi``/``wo`` among the targets, GShard capacity 1.25, T 4096,
+   batch 1, full remat), every loss finite, the first within LOSS_TOL
+   of the plain path's, every LoRA ``b`` moved, the base unchanged,
+   the dropped fraction and aux loss printed. Then 8 requests (prompts
+   of 64-2000 tokens, 16 new, greedy) through a 4-lane
+   ``ContinuousBatchingScheduler`` (``max_len`` 4096, chunks of 512)
+   at the no-drop capacity ``n_experts / top_k`` that
+   ``hf_convert.llama_config_from_hf`` gives a Mixtral: every request
+   by length, K1 and K3 launched as the chunks and ticks imply, a
+   rerun's tokens bitwise equal; and 4 teacher-forced ragged decode
+   steps' logits within ``MOE_DECODE_*`` of ``llama.forward``, a
+   position back outside them, with the share of routings whose top-2
+   experts differ between the two.
 
 Then it prints the card line, one ``{"kernels": [...]}`` line, and as
 its last line ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -139,6 +185,7 @@ or without the package beside it, it exits non-zero before any result.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import gc
 import json
@@ -157,7 +204,7 @@ import uuid
 REPO = os.path.dirname(os.path.abspath(__file__))
 PHASES = (
     "card", "kernels", "times", "train", "elastic", "train_low_bit",
-    "train_llama_lora", "serve",
+    "train_llama_lora", "serve", "train_glm", "train_bert", "moe",
 )
 
 # Flash attention's bf16 outputs, compared element by element:
@@ -221,6 +268,12 @@ MAIN = {
 NORM_MAIN = {
     "gpt2": ("gpt2_ln_e768", 8 * 1024, 768, False, True),
     "llama": ("llama_rms_e4096", 2 * 4096, 4096, True, False),
+    # BERT-large at batch 16, T 512: LayerNorm with bias at E 1024, the
+    # widest row a warp takes
+    "bert": ("bert_ln_n8192_e1024", 16 * 512, 1024, False, True),
+    # ChatGLM3-6B at batch 2, T 2048, and the Mixtral shape at batch 1,
+    # T 4096: RMSNorm on 4096 rows of 4096
+    "glm": ("glm_moe_rms_n4096_e4096", 4096, 4096, True, False),
 }
 NORM_CASES = list(NORM_MAIN.values()) + [
     ("ragged_n1000_e128", 1000, 128, False, True),
@@ -244,6 +297,23 @@ NORM_CASES.append(SERVE_NORM)
 # position 1536 of its lane (neither the key count nor the offset a
 # multiple of the kernel's tiles would need to be).
 SERVE_RECT = dict(b=1, tq=512, tk=2048, h=32, d=128, q_offset=1536)
+# The attention calls of the GLM, BERT and MoE phases, each at its
+# path's shape (the scale 1/sqrt(d) as the model path applies it):
+SLICE_FLASH = {
+    # ChatGLM3-6B, batch 2, T 2048, prefix 1000 (no multiple of the
+    # kernels' 128-row tiles), GQA expanded to 32 heads: the prefix
+    # square, non-causal, and the suffix rectangle at q_offset 1000
+    "glm_prefix": dict(b=2, tq=1000, tk=1000, h=32, d=128, causal=False,
+                       q_offset=0),
+    "glm_suffix": dict(b=2, tq=1048, tk=2048, h=32, d=128, causal=True,
+                       q_offset=1000),
+    # BERT-large, batch 16, T 512, non-causal
+    "bert": dict(b=16, tq=512, tk=512, h=16, d=64, causal=False,
+                 q_offset=0),
+    # the Mixtral-shaped LoRA step, batch 1, T 4096, causal
+    "mixtral": dict(b=1, tq=4096, tk=4096, h=32, d=128, causal=True,
+                    q_offset=0),
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -389,6 +459,7 @@ def phase_kernels(res: dict) -> None:
         wrapper_autograd(d)
         free_memory()
     serve_rect_case(res)
+    slice_flash_cases(res)
     norm_cases(res)
     quant_cases(res)
     log(f"# {_limits()}; quantization: bitwise")
@@ -494,6 +565,59 @@ def serve_rect_case(res: dict) -> None:
           "forward kernel disagrees with its plain version at the serving "
           "lane prefill's shape")
     res["max_abs_err"]["fwd128_serve"] = max(o_err[0], lse_abs)
+
+
+def _slice_inputs(label, seed):
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    s = SLICE_FLASH[label]
+    q, k, v, do, _ = _case_inputs(seed, s["b"], s["tq"], s["tk"], s["h"],
+                                  s["d"])
+    q, scale = fa._fold_scale(q, None, s["d"])  # as the model path calls it
+    return q, k, v, do, (s["causal"], scale, None, s["q_offset"])
+
+
+def _slice_shape(label) -> str:
+    s = SLICE_FLASH[label]
+    return (
+        f"D{s['d']} B{s['b']} tq{s['tq']} tk{s['tk']} H{s['h']} "
+        + ("causal" if s["causal"] else "non-causal")
+        + (f" q_offset{s['q_offset']}" if s["q_offset"] else "")
+    )
+
+
+def slice_flash_cases(res: dict) -> None:
+    """K1 and K2 at the GLM, BERT and MoE phases' shapes (SLICE_FLASH)
+    against their plain versions, held to the flash limits."""
+    import torch
+
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    for i, label in enumerate(SLICE_FLASH):
+        q, k, v, do, args = _slice_inputs(label, 160 + i)
+        o_ref, lse_ref = fa.flash_attention_ref(q, k, v, *args)
+        o, lse = fa._fwd_cuda(q, k, v, *args)
+        torch.cuda.synchronize()
+        o_err = _err(o, o_ref)
+        lse_abs = (lse - lse_ref).abs().max().item()
+        delta = (do.float() * o_ref.float()).sum(-1).transpose(1, 2)
+        grads_ref = fa.flash_attention_bwd_ref(
+            q, k, v, lse_ref, do, delta, *args
+        )
+        grads = fa._bwd_cuda(q, k, v, lse_ref, do, delta, *args)
+        torch.cuda.synchronize()
+        g_errs = [_err(g, r) for g, r in zip(grads, grads_ref)]
+        log(f"# parity {label} ({_slice_shape(label)}, scale "
+            f"{args[1]:.6g}): {_fmt('o', o_err)} | lse abs {lse_abs:.3e} | "
+            + " | ".join(_fmt(f"d{n}", e) for n, e in zip("qkv", g_errs)))
+        check(_within(o_err) and lse_abs <= LSE_TOL,
+              f"forward kernel disagrees with its plain version on {label}")
+        check(all(_within(e) for e in g_errs),
+              f"backward kernels disagree with the plain version on {label}")
+        res["max_abs_err"][f"fwd_{label}"] = max(o_err[0], lse_abs)
+        res["max_abs_err"][f"bwd_{label}"] = max(e[0] for e in g_errs)
+        del q, k, v, do, o_ref, lse_ref, grads_ref, grads, o, lse, delta
+        free_memory()
 
 
 def wrong_mask_fails(
@@ -1310,6 +1434,82 @@ def serve_times() -> dict:
     return {"serve_rect": rect, "serve_norm": norm_t}
 
 
+def slice_bounds(label):
+    """Least times (ms) of K1 and K2 at a SLICE_FLASH shape: bytes of q,
+    k, v and o (and dO, dq, dk, dv) in bf16 and the f32 lse (and delta),
+    over the memory rate; 4 D (forward) and 10 D (backward) operations
+    on each visible (query, key) pair, over the bf16 rate."""
+    s = SLICE_FLASH[label]
+    b, tq, tk, h, d = s["b"], s["tq"], s["tk"], s["h"], s["d"]
+    if s["causal"]:  # the keys end with the queries (tk = q_offset + tq)
+        pairs = b * h * (tq * s["q_offset"] + tq * (tq + 1) // 2)
+    else:
+        pairs = b * h * tq * tk
+    eq, ek = b * tq * h * d, b * tk * h * d
+    fwd = _bound((2 * eq + 2 * ek) * 2 + b * h * tq * 4, 4 * d * pairs)
+    bwd = _bound((3 * eq + 4 * ek) * 2 + 2 * b * h * tq * 4, 10 * d * pairs)
+    return fwd, bwd
+
+
+def slice_flash_times(label: str) -> dict:
+    """K1 and K2 at a SLICE_FLASH shape beside their plain versions,
+    SDPA (causal, with the explicit mask of a rectangle, or without a
+    mask) and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    s = SLICE_FLASH[label]
+    q, k, v, do, args = _slice_inputs(label, 170)
+    causal, scale, _, off = args
+    o, lse = fa._fwd_cuda(q, k, v, *args)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+
+    def fwd():
+        return fa._fwd_cuda(q, k, v, *args)
+
+    def bwd():
+        return fa._bwd_cuda(q, k, v, lse, do, delta, *args)
+
+    times = {
+        "fwd": median_ms(fwd), "fwd_device": device_ms(fwd),
+        "fwd_plain": median_ms(
+            lambda: fa.flash_attention_ref(q, k, v, *args), reps=3),
+        "bwd": median_ms(bwd), "bwd_device": device_ms(bwd),
+        "bwd_plain": median_ms(
+            lambda: fa.flash_attention_bwd_ref(q, k, v, lse, do, delta,
+                                               *args), reps=3),
+    }
+    qt, kt, vt = (
+        x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v)
+    )
+    square = causal and off == 0 and s["tq"] == s["tk"]
+    mask = (
+        fa.attention_mask(s["tq"], s["tk"], True, None, off, q.device)
+        if causal and not square else None
+    )
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=square, scale=scale
+        )
+
+    times["fwd_library"] = median_ms(sdpa)
+    out, dot = sdpa(), do.transpose(1, 2)
+    times["bwd_library"] = median_ms(
+        lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+    )
+    (fb, fby), (bb, bby) = slice_bounds(label)
+    times.update(fwd_bound=fb, fwd_bound_by=fby, bwd_bound=bb,
+                 bwd_bound_by=bby)
+    log(f"# times flash {label} (ms, median, {_slice_shape(label)} bf16): "
+        + json.dumps(times))
+    del q, k, v, do, o, lse, delta, qt, kt, vt, out
+    free_memory()
+    return times
+
+
 def phase_times(res: dict) -> None:
     res["times"] = {
         "flash64": flash_times(64),
@@ -1318,6 +1518,10 @@ def phase_times(res: dict) -> None:
         "norm_llama": norm_times("llama"),
         "quant": quant_times(),
         **serve_times(),
+        **{f"flash_{label}": slice_flash_times(label)
+           for label in SLICE_FLASH},
+        "norm_bert": norm_times("bert"),
+        "norm_glm": norm_times("glm"),
     }
 
 
@@ -2392,6 +2596,550 @@ def phase_serve(res: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phases 9-11: the GLM, BERT and Mixtral-shaped MoE families
+# ---------------------------------------------------------------------------
+
+GLM = dict(t=2048, batch=2, steps=3, prefixes=(1024, 1000), rank=8, lr=1e-3)
+GLM_GEN = dict(batch=2, prompt=512, new=32)
+BERT = dict(batch=16, steps=4, cls_steps=2, lr=1e-4, mask_id=103)
+MOE = dict(n_layer=4, t=4096, steps=3, rank=8, lr=1e-3)
+MOE_SERVE = dict(lanes=4, max_len=4096, block_size=16, prefill_chunk=512)
+MOE_REQUESTS, MOE_NEW, MOE_PROMPT = 8, 16, (64, 2000)
+# Teacher-forced ragged decode of the 4-layer Mixtral-shaped model
+# against llama.forward, per compared row (max|err| and rms(err) over
+# rms(ref)). The decode step's GEMMs have 4 rows where the forward's
+# have thousands, so bf16 projections round otherwise (dense Llama's
+# gap at 4 layers: 1.3-1.5% of rms, tools/decode_gap.py); a token whose
+# top-2 experts differ between the two programs would move by an
+# expert's output on top. Measured (NVIDIA H100 80GB HBM3, 700 W):
+# max|err| 0.082-0.113 rms, rms(err) 0.018-0.024 rms, no routing of 64
+# differing; the limits leave 2.2x and 2.6x of that. A row one position
+# back is off by 5.8x and 1.4x rms (the must-fail comparison).
+MOE_DECODE_ATOL = 2.0 ** -2
+MOE_DECODE_RMS = 2.0 ** -4
+
+
+def _lora_steps(params, loss, tokens, targets, steps, rank, lr) -> dict:
+    """``steps`` LoRA steps (rank ``rank``, AdamW ``lr``, the default
+    targets) on frozen ``params`` with ``loss(eff_params, tokens,
+    targets)``; the counters zeroed just before the steps and read just
+    after. Returns losses, step seconds, tokens/s over the steps after
+    the first, peak memory (GiB), launches, whether every LoRA ``b``
+    moved off zero, and the number of LoRA parameters."""
+    import torch
+
+    from dlrover_tpu_torch.models import lora
+    from dlrover_tpu_torch.optim.adamw import AdamW
+    from dlrover_tpu_torch.trainer.step import make_train_step
+
+    lcfg = lora.LoraConfig(rank=rank)
+    lp = lora.init_lora(
+        params, lcfg, torch.Generator(device="cuda").manual_seed(1)
+    )
+    opt = AdamW(lr)
+    state = opt.init(lp)
+    step = make_train_step(
+        lambda lp_, a, b: loss(lora.apply(params, lp_, lcfg), a, b), opt
+    )
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, step_s = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        lp, state, metrics = step(lp, state, tokens, targets)
+        losses.append(float(metrics["loss"]))  # the step's one sync
+        step_s.append(time.perf_counter() - t0)
+    launches = read_counts()
+    timed = step_s[1:] or step_s
+    out = {
+        "losses": losses, "step_s": step_s, "launches": launches,
+        "tokens_per_s": tokens.numel() * len(timed) / sum(timed),
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "lora_b_nonzero": all(
+            bool(ab["b"].abs().sum() > 0)
+            for ab in lora._flatten_named(lp, ("a", "b")).values()
+        ),
+        "n_lora": lora.num_trainable(lp),
+    }
+    del lp, state, step
+    free_memory()
+    return out
+
+
+def _plain(cfg):
+    """The config with dense attention and the plain norms."""
+    return dataclasses.replace(
+        cfg, use_flash_attention=False, use_fused_norm=False
+    )
+
+
+def _check_launches(launches, want, what) -> None:
+    check(all(launches[k] >= n for k, n in want.items()),
+          f"{what}: kernel launches {launches} below {want}")
+
+
+def phase_train_glm(res: dict) -> None:
+    """ChatGLM3-6B at full width and depth: LoRA blank infilling at two
+    prefix lengths, then greedy generation through the bidirectional
+    prefill."""
+    import numpy as np
+    import torch
+
+    from dlrover_tpu_torch.examples.llama_lora.train import _fingerprints
+    from dlrover_tpu_torch.models import glm, llama
+
+    free_memory()
+    cfg = glm.chatglm3_6b()
+    params = llama.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"
+    )
+    before = _fingerprints(params)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, (GLM["batch"], GLM["t"]))
+    tokens = torch.as_tensor(toks).cuda()
+    targets = torch.as_tensor(np.roll(toks, -1, axis=1)).cuda()
+    L, steps = cfg.n_layer, GLM["steps"]
+    res["glm"] = {}
+    for p in GLM["prefixes"]:
+        def loss(eff, a, b, p=p, cfg=cfg):
+            return glm.prefix_lm_loss_fn(eff, a, b, cfg, p)
+
+        run = _lora_steps(params, loss, tokens, targets, steps,
+                          GLM["rank"], GLM["lr"])
+        launches, losses = run["launches"], run["losses"]
+        with torch.no_grad():
+            plain = float(glm.prefix_lm_loss_fn(
+                params, tokens, targets, _plain(cfg), p
+            ))
+        diff = abs(plain - losses[0])
+        log(f"# train glm chatglm3-6b lora prefix {p} (T {GLM['t']}, batch "
+            f"{GLM['batch']}, rank {GLM['rank']}): losses {losses} | step_s "
+            f"{run['step_s']} | tokens/s {run['tokens_per_s']:.1f} (steps "
+            f"2..{steps}) | launches {launches} | peak_mem_GiB "
+            f"{run['peak_mem_gib']:.2f} | plain path (dense prefix-LM "
+            f"attention, plain RMSNorm) first loss {plain} (|diff| "
+            f"{diff:.3e}, tol {LOSS_TOL}) | {res['card']}")
+        check(all(math.isfinite(x) for x in losses),
+              f"non-finite GLM loss {losses}")
+        check(diff <= LOSS_TOL, "GLM first loss differs from the plain path")
+        check(run["lora_b_nonzero"], "a GLM LoRA b is still zero")
+        per = L * steps
+        # Per layer and step: the prefix square and the suffix rectangle
+        # (twice: remat recomputes the block), two norms (twice), and
+        # the backward of each (block 0's first norm has no gradient to
+        # take: its input and gain are frozen).
+        _check_launches(launches, {
+            "flash_fwd": 4 * per, "flash_bwd": 2 * per,
+            "norm_fwd": 4 * per, "norm_bwd": (2 * L - 1) * steps,
+        }, f"train_glm prefix {p}")
+        run.update(plain_first_loss=plain)
+        res["glm"][p] = run
+    check(_fingerprints(params) == before, "the frozen GLM base changed")
+    res["launches_glm"] = res["glm"][GLM["prefixes"][0]]["launches"]
+    glm_generate(params, cfg, res)
+    del params
+    free_memory()
+
+
+def glm_generate(params, cfg, res: dict) -> None:
+    """``generate.generate`` on 2 prompts of 512 tokens, 32 new, greedy:
+    the prompt prefills bidirectionally (``cfg.prefix_lm``), and every
+    new token must be ``prefix_lm_forward``'s argmax at its position
+    (the prompt as prefix), or within GEN_MARGIN x rms(row) of it."""
+    import torch
+
+    from dlrover_tpu_torch.models import generate, glm
+
+    g = GLM_GEN
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    prompt = torch.randint(0, cfg.vocab_size, (g["batch"], g["prompt"]),
+                           generator=gen, device="cuda")
+    reset_counts()
+    t0 = time.perf_counter()
+    out = generate.generate(params, cfg, prompt, g["new"], temperature=0.0)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = read_counts()
+    check(out.shape == (g["batch"], g["prompt"] + g["new"]),
+          f"GLM generate returned {tuple(out.shape)}")
+    with torch.no_grad():
+        logits = glm.prefix_lm_forward(
+            params, out[:, :-1], dataclasses.replace(cfg, remat=False),
+            g["prompt"],
+        )
+    rows = logits[:, g["prompt"] - 1:]
+    new = out[:, g["prompt"]:]
+    best = rows.argmax(-1)
+    gap = rows.gather(-1, best[..., None]) - rows.gather(-1, new[..., None])
+    share = (gap / rows.square().mean(-1, keepdim=True).sqrt()).max().item()
+    exact = int((best == new).sum())
+    log(f"# train glm generate (greedy, prompt {g['batch']}x{g['prompt']} "
+        f"bidirectional, {g['new']} new) in {gen_s:.2f} s: {exact}/"
+        f"{new.numel()} tokens the prefix-LM forward's argmax, the worst "
+        f"gap {share:.5f} of the row's rms (limit {GEN_MARGIN}) | "
+        f"launches {launches}")
+    check(share <= GEN_MARGIN, "GLM generated tokens stray from the forward")
+    # the bidirectional prefill: one non-causal K1 call a layer
+    _check_launches(launches, {"flash_fwd": cfg.n_layer,
+                               "norm_fwd": 2 * cfg.n_layer * g["new"]},
+                    "GLM generate")
+    res["glm_generate"] = {"exact": exact, "worst_gap": share,
+                           "seconds": gen_s}
+
+
+def phase_train_bert(res: dict) -> None:
+    """BERT-large at full size: MLM steps on mask_tokens corruption of a
+    Zipfian token stream, then classifier steps."""
+    import torch
+
+    from dlrover_tpu_torch.examples.nanogpt.train import synthetic_tokens
+    from dlrover_tpu_torch.models import bert
+    from dlrover_tpu_torch.optim.adamw import AdamW
+    from dlrover_tpu_torch.trainer.step import value_and_grad
+
+    free_memory()
+    cfg = bert.bert_large()
+    b, t = BERT["batch"], cfg.block_size
+    params = bert.init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+    tokens = torch.as_tensor(
+        synthetic_tokens(b * t, cfg.vocab_size, 0).reshape(b, t)
+    ).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batches = [
+        bert.mask_tokens(gen, tokens, cfg.vocab_size, BERT["mask_id"])
+        for _ in range(BERT["steps"])
+    ]
+    with torch.no_grad():
+        plain = float(bert.mlm_loss_fn(params, *batches[0], _plain(cfg)))
+    opt = AdamW(BERT["lr"])
+    state = opt.init(params)
+    vg = value_and_grad(
+        lambda p, c, lab, w: bert.mlm_loss_fn(p, c, lab, w, cfg)
+    )
+    free_memory()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, step_s = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        loss, grads = vg(params, *batch)
+        params, state = opt.update(grads, state, params)
+        losses.append(float(loss))
+        step_s.append(time.perf_counter() - t0)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tokens_per_s = b * t * (len(step_s) - 1) / sum(step_s[1:])
+    diff = abs(plain - losses[0])
+    log(f"# train bert-large mlm (batch {b}, T {t}, AdamW {BERT['lr']}): "
+        f"losses {losses} | step_s {step_s} | tokens/s {tokens_per_s:.1f} "
+        f"(steps 2..{len(step_s)}) | launches {launches} | peak_mem_GiB "
+        f"{peak:.2f} | plain path (dense attention, plain LayerNorm) first "
+        f"loss {plain} (|diff| {diff:.3e}, tol {LOSS_TOL}) | {res['card']}")
+    check(all(math.isfinite(x) for x in losses),
+          f"non-finite MLM loss {losses}")
+    check(abs(losses[0] - math.log(cfg.vocab_size)) <= 0.1,
+          f"first MLM loss {losses[0]} is not ln({cfg.vocab_size}) within "
+          "0.1")
+    check(diff <= LOSS_TOL, "MLM first loss differs from the plain path")
+    check(losses[-1] < losses[0], f"the MLM loss did not fall: {losses}")
+    per = cfg.n_layer * len(batches)
+    # Full remat: each layer's forward twice a step, two norms each;
+    # every norm takes a gradient (the embeddings train).
+    _check_launches(launches, {"flash_fwd": 2 * per, "flash_bwd": per,
+                               "norm_fwd": 4 * per, "norm_bwd": 2 * per},
+                    "train_bert")
+    res["launches_bert"] = launches
+    res["bert"] = {"losses": losses, "step_s": step_s, "peak_mem_gib": peak,
+                   "tokens_per_s": tokens_per_s, "plain_first_loss": plain}
+    del params, state, grads
+    free_memory()
+    # The plain path's trajectory from the same init and corruptions,
+    # for the reader (bf16 steps diverge as their rounding differs).
+    params = bert.init_params(cfg, torch.Generator().manual_seed(0), "cuda")
+    state = opt.init(params)
+    vg = value_and_grad(
+        lambda p, c, lab, w: bert.mlm_loss_fn(p, c, lab, w, _plain(cfg))
+    )
+    plain_losses = []
+    for batch in batches:
+        loss, grads = vg(params, *batch)
+        params, state = opt.update(grads, state, params)
+        plain_losses.append(float(loss))
+    log(f"# train bert-large mlm plain path (dense attention, plain "
+        f"LayerNorm), the same steps: losses {plain_losses}")
+    res["bert"]["plain_losses"] = plain_losses
+    del params, state, grads, batches
+    free_memory()
+    # classifier fine-tuning steps, 2 classes
+    params = bert.init_classifier_params(
+        cfg, 2, torch.Generator().manual_seed(3), "cuda"
+    )
+    labels = torch.randint(0, 2, (b,), generator=gen, device="cuda")
+    state = opt.init(params)
+    vg = value_and_grad(
+        lambda p, x, y: bert.classifier_loss_fn(p, x, y, cfg)
+    )
+    cls_losses = []
+    for _ in range(BERT["cls_steps"]):
+        loss, grads = vg(params, tokens, labels)
+        params, state = opt.update(grads, state, params)
+        cls_losses.append(float(loss))
+    log(f"# train bert-large classifier (2 classes, batch {b}): losses "
+        f"{cls_losses}")
+    check(all(math.isfinite(x) for x in cls_losses),
+          f"non-finite classifier loss {cls_losses}")
+    res["bert"]["classifier_losses"] = cls_losses
+    del params, state, grads
+    free_memory()
+
+
+def _moe_cfg():
+    from dlrover_tpu_torch.models import llama
+
+    return dataclasses.replace(
+        llama.LlamaConfig.moe_8x7b(), n_layer=MOE["n_layer"]
+    )
+
+
+class _RouteRecorder:
+    """Within ``with``: every ``moe._route`` call's expert choices
+    ([top_k, n], on the host), and its metrics."""
+
+    def __enter__(self):
+        from dlrover_tpu_torch.models import moe
+
+        self.choices, self.metrics, self._orig = [], [], moe._route
+
+        def route(logits, top_k, capacity):
+            r, m = self._orig(logits, top_k, capacity)
+            self.choices.append(r.expert.cpu())
+            self.metrics.append({k: float(v) for k, v in m.items()})
+            return r, m
+
+        moe._route = route
+        return self
+
+    def __exit__(self, *exc):
+        from dlrover_tpu_torch.models import moe
+
+        moe._route = self._orig
+
+
+def phase_moe(res: dict) -> None:
+    """The Mixtral-8x7B shape at full width and 4 of its 32 layers: LoRA
+    steps over the attention and the experts, then serving through the
+    continuous-batching scheduler."""
+    import numpy as np
+    import torch
+
+    from dlrover_tpu_torch.examples.llama_lora.train import _fingerprints
+    from dlrover_tpu_torch.models import llama
+
+    free_memory()
+    cfg = _moe_cfg()
+    params = llama.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"
+    )
+    before = _fingerprints(params)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, (1, MOE["t"]))
+    tokens = torch.as_tensor(toks).cuda()
+    targets = torch.as_tensor(np.roll(toks, -1, axis=1)).cuda()
+
+    def loss(eff, a, b, cfg=cfg):
+        return llama.loss_fn_fused(eff, a, b, cfg, num_chunks=4)
+
+    run = _lora_steps(params, loss, tokens, targets, MOE["steps"],
+                      MOE["rank"], MOE["lr"])
+    launches, losses = run["launches"], run["losses"]
+    with torch.no_grad():
+        with _RouteRecorder() as rec:  # the first step's routing
+            loss(params, tokens, targets)
+        plain = float(loss(params, tokens, targets, _plain(cfg)))
+    diff = abs(plain - losses[0])
+    dropped = [m["dropped_fraction"] for m in rec.metrics]
+    aux = [m["aux_loss"] for m in rec.metrics]
+    log(f"# train moe mixtral-8x7b shape, {cfg.n_layer} of 32 layers, lora "
+        f"(T {MOE['t']}, batch 1, capacity {cfg.moe_capacity_factor}, rank "
+        f"{MOE['rank']}, experts' wi/wo targeted): losses {losses} | step_s "
+        f"{run['step_s']} | tokens/s {run['tokens_per_s']:.1f} (steps "
+        f"2..{MOE['steps']}) | launches {launches} | peak_mem_GiB "
+        f"{run['peak_mem_gib']:.2f} | trainable {run['n_lora']:,} | plain "
+        f"path first loss {plain} (|diff| {diff:.3e}, tol {LOSS_TOL}) | "
+        f"dropped fraction by layer {dropped} | aux loss by layer {aux} | "
+        f"{res['card']}")
+    check(all(math.isfinite(x) for x in losses),
+          f"non-finite MoE loss {losses}")
+    check(diff <= LOSS_TOL, "MoE first loss differs from the plain path")
+    check(run["lora_b_nonzero"], "a MoE LoRA b is still zero")
+    check(_fingerprints(params) == before, "the frozen MoE base changed")
+    L, steps = cfg.n_layer, MOE["steps"]
+    _check_launches(launches, {
+        "flash_fwd": 2 * L * steps, "flash_bwd": L * steps,
+        "norm_fwd": 4 * L * steps, "norm_bwd": (2 * L - 1) * steps,
+    }, "moe lora")
+    run.update(plain_first_loss=plain, dropped_fraction=dropped,
+               aux_loss=aux)
+    res["moe"] = run
+    res["launches_moe"] = launches
+    moe_serve(params, res)
+    del params
+    free_memory()
+
+
+def moe_serve(params, res: dict) -> None:
+    """8 requests through a 4-lane ContinuousBatchingScheduler at the
+    no-drop capacity a converted Mixtral gets (n_experts / top_k), twice
+    (the tokens bitwise equal), then the teacher-forced decode logits
+    against llama.forward."""
+    import torch
+
+    from dlrover_tpu_torch.serving.scheduler import (
+        ContinuousBatchingScheduler,
+        ServeRequest,
+    )
+
+    base = _moe_cfg()
+    cfg = dataclasses.replace(
+        base, moe_capacity_factor=base.n_experts / base.moe_top_k
+    )
+    prompts = _serve_tokens(60, MOE_REQUESTS, cfg.vocab_size, *MOE_PROMPT)
+
+    def serve_once():
+        sched = ContinuousBatchingScheduler(params, cfg, **MOE_SERVE)
+        for i, p in enumerate(prompts):
+            check(sched.submit(ServeRequest(
+                request_id=f"m{i}", prompt=p, max_new_tokens=MOE_NEW,
+            )), f"request m{i} refused")
+        done = {}
+        t0 = time.perf_counter()
+        for _ in range(5000):
+            for c in sched.step():
+                done[c.request_id] = c
+            if len(done) == len(prompts):
+                break
+        torch.cuda.synchronize()
+        return done, time.perf_counter() - t0, sched.stats()
+
+    free_memory()
+    reset_counts()
+    done, wall, stats = serve_once()
+    launches = read_counts()
+    check(len(done) == MOE_REQUESTS, f"{len(done)} of {MOE_REQUESTS} done")
+    for rid, c in done.items():
+        check(c.finish_reason == "length" and len(c.tokens) == MOE_NEW
+              and all(0 <= t < cfg.vocab_size for t in c.tokens),
+              f"MoE request {rid} ended {c.finish_reason} {c.error} with "
+              f"{len(c.tokens)} tokens")
+    chunk, lanes = MOE_SERVE["prefill_chunk"], MOE_SERVE["lanes"]
+    chunks = sum(-(-len(p) // chunk) for p in prompts)
+    ticks = -(-MOE_REQUESTS * (MOE_NEW - 1) // lanes)
+    L = cfg.n_layer
+    # The lane prefill calls K1 once for each query group of a kv head.
+    want = {"flash_fwd": L * cfg.q_per_kv * chunks,
+            "norm_fwd": 2 * L * (chunks + ticks)}
+    ttft = [c.ttft_s for c in done.values()]
+    tpot = [c.tpot_s for c in done.values()]
+    log(f"# serve moe ({L} layers, {lanes} lanes, capacity "
+        f"{cfg.moe_capacity_factor}): {MOE_REQUESTS} requests "
+        f"({sum(map(len, prompts))} prompt tokens in {chunks} chunks, "
+        f"{MOE_NEW} new each) in {wall:.2f} s | TTFT p50/p99 "
+        f"{_pct(ttft, 50):.3f}/{_pct(ttft, 99):.3f} s | TPOT p50/p99 "
+        f"{_pct(tpot, 50) * 1e3:.2f}/{_pct(tpot, 99) * 1e3:.2f} ms | "
+        f"launches {launches} (at least {want}) | steps {stats['steps']}")
+    _check_launches(launches, want, "moe serve")
+    again, wall2, _ = serve_once()
+    same = sum(again[r].tokens == c.tokens for r, c in done.items())
+    log(f"# serve moe rerun in {wall2:.2f} s: {same}/{MOE_REQUESTS} "
+        "requests bitwise equal")
+    check(same == MOE_REQUESTS, "the MoE serving rerun gave other tokens")
+    res["moe_serve"] = {
+        "wall_s": wall, "launches": launches, "ttft_p50_s": _pct(ttft, 50),
+        "ttft_p99_s": _pct(ttft, 99), "tpot_p50_s": _pct(tpot, 50),
+        "tpot_p99_s": _pct(tpot, 99),
+        "decode": moe_decode_logits(params, cfg),
+    }
+
+
+def moe_decode_logits(params, cfg) -> dict:
+    """4 lanes at positions 100..1300, prefilled chunk by chunk, take 4
+    teacher-forced ragged decode steps; their logits against
+    llama.forward's rows at the same positions, held to the
+    MOE_DECODE limits, and against the rows one position back (must
+    fail). Also the share of (layer, token) routings whose top-2 experts
+    differ between the decode steps and the forward."""
+    import torch
+
+    from dlrover_tpu_torch.models import generate, llama
+
+    ref_cfg = dataclasses.replace(cfg, remat=False)
+    lanes, steps, chunk = 4, 4, MOE_SERVE["prefill_chunk"]
+    lens = [100 + 400 * i for i in range(lanes)]
+    seqs = [
+        _serve_tokens(70 + i, 1, cfg.vocab_size, n + steps, n + steps)[0]
+        for i, n in enumerate(lens)
+    ]
+    dev = params["wte"].device
+    rope = llama.rope_table(cfg, 2048, dev)
+    L = cfg.n_layer
+    with torch.no_grad():
+        cache = generate._cache_for(cfg, lanes, 2048, cfg.n_kv_head, dev)
+        for lane, (n, seq) in enumerate(zip(lens, seqs)):
+            for start in range(0, n, chunk):
+                c = min(chunk, n - start)
+                buf = torch.zeros(1, chunk, dtype=torch.long, device=dev)
+                buf[0, :c] = torch.tensor(seq[start:start + c])
+                generate.llama_lane_prefill_chunk(
+                    params, cache, buf, lane, start, cfg, rope=rope
+                )
+        got = []
+        with _RouteRecorder() as dec:
+            for s in range(steps):
+                token = torch.tensor([q[n + s] for n, q in zip(lens, seqs)],
+                                     device=dev)
+                pos = torch.tensor([n + s for n in lens], device=dev)
+                logits, cache = generate.llama_decode_step_ragged(
+                    params, cache, token, pos, cfg, rope=rope,
+                    active=torch.ones(lanes, dtype=torch.bool, device=dev),
+                )
+                got.append(logits)
+        errs, wrong, differ, total = [], [], 0, 0
+        for lane, (n, seq) in enumerate(zip(lens, seqs)):
+            with _RouteRecorder() as fwd:
+                ref = llama.forward(
+                    params, torch.tensor([seq], device=dev), ref_cfg
+                )[0, n - 1:n + steps]
+            lane_logits = torch.stack([g[lane] for g in got])
+            errs.append(_logit_err(lane_logits, ref[1:]))
+            wrong.append(_logit_err(lane_logits, ref[:-1]))
+            for s in range(steps):
+                for layer in range(L):
+                    a = set(dec.choices[s * L + layer][:, lane].tolist())
+                    b = set(fwd.choices[layer][:, n + s].tolist())
+                    differ += a != b
+                    total += 1
+        del cache, got
+    wrong = min(wrong)
+    share = differ / total
+    log(f"# serve moe logits ragged decode (4 lanes at 100..1300, 4 steps) "
+        f"vs forward: {[(round(a, 5), round(b, 5)) for a, b in errs]} | "
+        f"held to the rows one position back (must fail): ({wrong[0]:.4f}, "
+        f"{wrong[1]:.4f}) | top-2 experts differ on {differ}/{total} "
+        f"(layer, token) routings ({share:.4f}) | limits max|err| <= "
+        f"{MOE_DECODE_ATOL} rms(ref), rms(err) <= {MOE_DECODE_RMS} rms(ref)")
+    limits = (MOE_DECODE_ATOL, MOE_DECODE_RMS)
+    check(all(_logits_within(e, *limits) for e in errs),
+          "MoE ragged decode logits disagree with the forward")
+    check(not _logits_within(wrong, *limits),
+          "the MoE decode logit limits pass logits one position back")
+    free_memory()
+    return {"worst": max(max(e) for e in errs), "expert_differ": share}
+
+
+
+
+# ---------------------------------------------------------------------------
 
 
 def kernels_line(res: dict) -> dict:
@@ -2455,6 +3203,44 @@ def kernels_line(res: dict) -> dict:
         "dlrover_tpu/ops/layer_norm.py:65", served["norm_fwd"],
         errs["norm_fwd_serve"], times["serve_norm"], "fwd",
     )
+    # the GLM, BERT and MoE phases' shapes, with their phase's launches
+    # (a phase's K1 count covers every call of its path: GLM's two a
+    # layer are counted together)
+    for label, phase, key in (
+        ("glm_prefix", "train_glm", "launches_glm"),
+        ("glm_suffix", "train_glm", "launches_glm"),
+        ("bert", "train_bert", "launches_bert"),
+        ("mixtral", "moe", "launches_moe"),
+    ):
+        launches, t = res[key], times[f"flash_{label}"]
+        shape = _slice_shape(label)
+        entry(
+            f"flash_attention_fwd {shape} ({phase})", flash_src,
+            "dlrover_tpu/ops/flash_attention.py:148", launches["flash_fwd"],
+            errs[f"fwd_{label}"], t, "fwd",
+        )
+        entry(
+            f"flash_attention_bwd (dkdv + dq) {shape} ({phase})", flash_src,
+            "dlrover_tpu/ops/flash_attention.py:299", launches["flash_bwd"],
+            errs[f"bwd_{label}"], t, "bwd",
+        )
+    for path, phase, key in (
+        ("glm", "train_glm", "launches_glm"),
+        ("bert", "train_bert", "launches_bert"),
+        ("glm", "moe", "launches_moe"),
+    ):
+        launches, t = res[key], times[f"norm_{path}"]
+        label = NORM_MAIN[path][0]
+        entry(
+            f"layer_norm_fwd {label} ({phase})", norm_src,
+            "dlrover_tpu/ops/layer_norm.py:65", launches["norm_fwd"],
+            errs[f"norm_fwd_{path}"], t, "fwd",
+        )
+        entry(
+            f"layer_norm_bwd + dg/db sum {label} ({phase})", norm_src,
+            "dlrover_tpu/ops/layer_norm.py:88", launches["norm_bwd"],
+            errs[f"norm_bwd_{path}"], t, "bwd",
+        )
     quant_src = "dlrover_tpu_torch/csrc/quantization.cu"
     q_file = "dlrover_tpu/ops/quantization.py"
     # name, optimizer, counter, times key, error keys, TPU kernel line

@@ -28,8 +28,10 @@ against the cache and the head stay plain products, as in the JAX
 package, with bf16 products summed in f32 and written as f32 (torch's
 ``out_dtype`` overloads of ``mm``/``bmm`` on the card; off the card the
 operands are upcast). Sampling draws from a ``torch.Generator`` where
-the JAX package takes a ``key``. Mixture-of-experts configs raise, as
-``llama.mlp_tail`` does.
+the JAX package takes a ``key``. Mixture-of-experts configs route
+through ``llama.mlp_tail`` in every program, each step's rows all
+routed together (the ragged step's idle lanes and a lane prefill's
+padding included), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -132,9 +134,7 @@ def _cached_attention(q, k_cache, v_cache, pos, window=None):
 
 def _layers(params):
     """The stacked block leaves as one dict of views per layer."""
-    names = sorted(params["blocks"])
-    per = [params["blocks"][n].unbind(0) for n in names]
-    return [dict(zip(names, leaves)) for leaves in zip(*per)]
+    return llama_mod.layer_params(params["blocks"])
 
 
 def _gpt_block(x, lp, cfg, attend):

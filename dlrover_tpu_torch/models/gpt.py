@@ -132,6 +132,29 @@ def init_params(
     return _to(params, dev)
 
 
+def param_logical_axes(cfg: GPTConfig) -> Params:
+    """Logical sharding axes per leaf, as the JAX package names them
+    (read by the parallelism slice, ROADMAP queue 1 item 6)."""
+    return {
+        "wte": ("vocab", "embed"),
+        "wpe": (None, "embed"),
+        "blocks": {
+            "ln1_g": ("layers", None),
+            "ln1_b": ("layers", None),
+            "wqkv": ("layers", "embed", "heads"),
+            "wo": ("layers", "heads", "embed"),
+            "ln2_g": ("layers", None),
+            "ln2_b": ("layers", None),
+            "wi": ("layers", "embed", "mlp"),
+            "bi": ("layers", "mlp"),
+            "wo2": ("layers", "mlp", "embed"),
+            "bo2": ("layers", None),
+        },
+        "lnf_g": (None,),
+        "lnf_b": (None,),
+    }
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}

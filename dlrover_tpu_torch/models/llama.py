@@ -18,8 +18,11 @@ functions on a nested dict of tensors:
 On a CUDA device the blocks run the flash-attention kernels from 512
 context up (``ops/flash_attention.py``, head_dim 64 or 128) and the
 fused RMSNorm kernels (``ops/layer_norm.py``), the attention residual
-add fused into the second norm. Mixture-of-experts blocks
-(``n_experts > 0``) are not ported (ROADMAP queue 1, item 12).
+add fused into the second norm. With ``n_experts > 0`` every block's MLP
+is a Mixtral-shaped mixture of experts (``models/moe.py``: SwiGLU
+experts, top-k routing renormalized over the kept choices), its leaves
+stacked under ``blocks["moe"]`` and its router loss summed into the aux
+loss.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ import torch.nn.functional as F
 
 from dlrover_tpu_torch.accelerate.remat import wire_block
 from dlrover_tpu_torch.common.device import DeviceLike, resolve_device
-from dlrover_tpu_torch.models import gpt
+from dlrover_tpu_torch.models import gpt, moe
 from dlrover_tpu_torch.ops.cross_entropy import dot_f32, fused_cross_entropy
 from dlrover_tpu_torch.ops.layer_norm import (
     fused_add_rms_norm,
@@ -48,8 +51,8 @@ Params = Dict[str, Any]
 class LlamaConfig:
     """The JAX package's ``LlamaConfig``, field for field.
     ``attn_blocks`` tunes the TPU kernel's tiles and raises here, as on
-    GPT; ``prefix_lm`` is read by the decode paths, which are not
-    ported yet."""
+    GPT; ``prefix_lm`` makes the decode paths prefill a prompt
+    bidirectionally (GLM, ``models/glm.py``)."""
 
     vocab_size: int = 32000
     block_size: int = 4096
@@ -68,7 +71,9 @@ class LlamaConfig:
     # otherwise; True/False force.
     use_fused_norm: Optional[bool] = None
     causal: bool = True
-    n_experts: int = 0  # > 0: mixture-of-experts MLP (not ported)
+    # > 0: every block's MLP is a mixture of experts (models/moe.py);
+    # ``intermediate`` is then each expert's hidden width.
+    n_experts: int = 0
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25
     # Mistral sliding window: query i sees keys (i - window, i].
@@ -138,12 +143,31 @@ class LlamaConfig:
             rope_theta=10000.0, sliding_window=4096,
         )
 
+    @staticmethod
+    def moe_8x7b() -> "LlamaConfig":
+        """Mixtral-8x7B-shaped: Llama-2 backbone, 8 experts, top-2."""
+        return LlamaConfig(
+            vocab_size=32000, block_size=4096, n_layer=32, n_head=32,
+            n_kv_head=8, n_embd=4096, intermediate=14336, rope_theta=1e6,
+            n_experts=8, moe_top_k=2,
+        )
 
-def _no_moe(cfg: LlamaConfig) -> None:
-    if cfg.n_experts > 0:
-        raise NotImplementedError(
-            "n_experts > 0 needs models/moe.py, not ported yet (ROADMAP "
-            "queue 1, item 12)"
+    @staticmethod
+    def moe_tiny() -> "LlamaConfig":
+        return dataclasses.replace(
+            LlamaConfig.tiny(), n_experts=4, moe_top_k=2
+        )
+
+    def _moe_cfg(self) -> moe.MoEConfig:
+        return moe.MoEConfig(
+            n_embd=self.n_embd,
+            n_experts=self.n_experts,
+            expert_hidden=self.intermediate,
+            top_k=self.moe_top_k,
+            capacity_factor=self.moe_capacity_factor,
+            dtype=self.dtype,
+            gated=True,  # SwiGLU experts and renormalized top-k:
+            renorm_top_k=True,  # the Mixtral block shape
         )
 
 
@@ -163,7 +187,6 @@ def init_params(
     of that device (seed 0 by default), so no full-model copy is built
     on the host. The numbers are PyTorch's, not ``jax.random``'s: the
     tests carry JAX weights over with ``models/convert.py``."""
-    _no_moe(cfg)
     dev = resolve_device(device)
     gen = generator or torch.Generator(device=dev).manual_seed(0)
     E, L, I = cfg.n_embd, cfg.n_layer, cfg.intermediate
@@ -192,11 +215,16 @@ def init_params(
     }
     if cfg.qkv_bias:
         blocks.update(bq=zeros((L, E)), bk=zeros((L, kv)), bv=zeros((L, kv)))
-    blocks.update(
-        w_gate=norm((L, E, I)),
-        w_up=norm((L, E, I)),
-        w_down=norm((L, I, E), resid_std),
-    )
+    if cfg.n_experts > 0:
+        blocks["moe"] = moe.init_moe_params(
+            cfg._moe_cfg(), gen, dev, lead=(L,)
+        )
+    else:
+        blocks.update(
+            w_gate=norm((L, E, I)),
+            w_up=norm((L, E, I)),
+            w_down=norm((L, I, E), resid_std),
+        )
     return {
         "wte": wte,
         "blocks": blocks,
@@ -207,8 +235,7 @@ def init_params(
 
 def param_logical_axes(cfg: LlamaConfig) -> Params:
     """Logical sharding axes per leaf, as the JAX package names them
-    (read by the parallelism slice, ROADMAP queue 1 item 10)."""
-    _no_moe(cfg)
+    (read by the parallelism slice, ROADMAP queue 1 item 6)."""
     blocks = {
         "rms1": ("layers", None),
         "wq": ("layers", "embed", "heads"),
@@ -216,14 +243,24 @@ def param_logical_axes(cfg: LlamaConfig) -> Params:
         "wv": ("layers", "embed", "heads"),
         "wo": ("layers", "heads", "embed"),
         "rms2": ("layers", None),
-        "w_gate": ("layers", "embed", "mlp"),
-        "w_up": ("layers", "embed", "mlp"),
-        "w_down": ("layers", "mlp", "embed"),
     }
     if cfg.qkv_bias:
         blocks.update(
             bq=("layers", "heads"), bk=("layers", "heads"),
             bv=("layers", "heads"),
+        )
+    if cfg.n_experts > 0:
+        blocks["moe"] = {
+            name: ("layers",) + axes
+            for name, axes in moe.moe_logical_axes(
+                gated=cfg._moe_cfg().gated
+            ).items()
+        }
+    else:
+        blocks.update(
+            w_gate=("layers", "embed", "mlp"),
+            w_up=("layers", "embed", "mlp"),
+            w_down=("layers", "mlp", "embed"),
         )
     return {
         "wte": ("vocab", "embed"),
@@ -272,8 +309,8 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
 
 
 def _block(x, lp, cfg: LlamaConfig, attn_fn, cos, sin):
-    """One block; returns (x, aux), aux a zero f32 scalar (the router
-    loss of MoE blocks in the JAX package)."""
+    """One block; returns (x, aux), aux the router loss of an MoE block
+    and a zero f32 scalar for a dense one."""
     B, T, E = x.shape
     H, Hkv, D = cfg.n_head, cfg.n_kv_head, cfg.head_dim
     fused = gpt.use_fused_norm(cfg, x.device)
@@ -305,8 +342,14 @@ def _block(x, lp, cfg: LlamaConfig, attn_fn, cos, sin):
 
 
 def mlp_tail(x, h, lp, cfg: LlamaConfig):
-    """Dense SwiGLU tail of a block: (x + mlp(h), zero aux)."""
-    _no_moe(cfg)
+    """Dense-SwiGLU or expert-routed MLP tail of a block, shared by the
+    training block and the decode paths (``models/generate.py``):
+    (x + mlp(h), aux loss). The routed tail routes every row of ``h``,
+    the decode step's idle lanes and a prefill chunk's padding
+    included, as the JAX package does."""
+    if cfg.n_experts > 0:
+        y, aux = moe.moe_mlp(lp["moe"], h, cfg._moe_cfg())
+        return x + y.to(x.dtype), aux
     gated = F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + gated @ lp["w_down"], aux
@@ -321,6 +364,20 @@ def default_attention_for(cfg: LlamaConfig, device=None) -> Callable:
     """The same selection as GPT (``gpt.default_attention_for`` reads
     only the fields both configs carry, the sliding window included)."""
     return gpt.default_attention_for(cfg, device)
+
+
+def layer_params(blocks: Params) -> list:
+    """The stacked block leaves as one dict of views per layer, nested
+    dicts (``blocks["moe"]``) split the same way. One unbind per stacked
+    leaf: its backward stacks the per-layer gradients once, where
+    indexing each layer would scatter each one into a full [L, ...]
+    zero tensor."""
+    if not isinstance(blocks, dict):
+        return list(blocks.unbind(0))
+    per = {name: layer_params(leaf) for name, leaf in blocks.items()}
+    n = len(next(iter(per.values())))
+    return [{name: layers[i] for name, layers in per.items()}
+            for i in range(n)]
 
 
 def backbone_with_aux(
@@ -342,12 +399,9 @@ def backbone_with_aux(
         cfg.remat,
         attn_fn,
     )
-    # One unbind per stacked leaf (see gpt.backbone).
-    names = sorted(params["blocks"])
-    per_layer = [params["blocks"][n].unbind(0) for n in names]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layer):
-        x, a = block(x, {n: per_layer[j][i] for j, n in enumerate(names)})
+    for lp in layer_params(params["blocks"]):
+        x, a = block(x, lp)
         aux = aux + a
     return _rms_norm(x, params["rmsf"], cfg.rms_eps), aux
 

@@ -245,9 +245,11 @@ def test_every_copy_is_listed():
     own = {
         "__init__.py", "accelerate/__init__.py", "accelerate/api.py",
         "accelerate/remat.py", "common/__init__.py", "models/__init__.py",
-        "models/convert.py", "models/gpt.py", "models/llama.py",
-        "models/lora.py", "ops/__init__.py", "ops/cross_entropy.py",
-        "ops/flash_attention.py", "ops/layer_norm.py",
+        "models/bert.py", "models/convert.py", "models/glm.py",
+        "models/gpt.py", "models/hf_convert.py", "models/llama.py",
+        "models/lora.py", "models/moe.py", "ops/__init__.py",
+        "ops/cross_entropy.py", "ops/flash_attention.py",
+        "ops/layer_norm.py", "ops/prefix_lm.py",
         "ops/quantization.py", "optim/__init__.py", "optim/agd.py",
         "optim/low_bit.py", "serving/__init__.py", "sparse/__init__.py",
         "trainer/__init__.py", "trainer/async_metrics.py",

@@ -7,11 +7,12 @@ Weights come from the JAX init and reach the port through
 ``convert.cache_from_jax``. Each case feeds the same seeded inputs to
 both packages:
 
-* cached decode (``decode_logits_sequential``) for GPT, Llama (GQA) and
-  windowed Mistral-tiny, against JAX's and against the port's own
-  training forward;
-* greedy ``generate`` tokens equal to JAX's, and a sampled run that is
-  repeatable under one generator seed;
+* cached decode (``decode_logits_sequential``) for GPT, Llama (GQA),
+  windowed Mistral-tiny, Llama with experts (no-drop capacity) and GLM
+  tiny, against JAX's and against the port's own training forward;
+* greedy ``generate`` tokens equal to JAX's for each (GLM through its
+  bidirectional prefill), and a sampled run that is repeatable under
+  one generator seed;
 * ``llama_prefill_chunked`` against JAX's and against one-shot prefill,
   plain and windowed; one-shot prefill with ``causal=False``;
 * ``llama_lane_prefill_chunk`` with a padded final chunk into one lane
@@ -37,10 +38,12 @@ import torch
 
 from dlrover_tpu_torch.models import convert
 from dlrover_tpu_torch.models import generate as tgen
+from dlrover_tpu_torch.models import glm as tglm
 from dlrover_tpu_torch.models import gpt as tgpt
 from dlrover_tpu_torch.models import llama as tllama
 
 jgen = importlib.import_module("dlrover_tpu.models.generate")
+jglm = importlib.import_module("dlrover_tpu.models.glm")
 jgpt = importlib.import_module("dlrover_tpu.models.gpt")
 jllama = importlib.import_module("dlrover_tpu.models.llama")
 
@@ -92,13 +95,43 @@ def _llama(**kw):
     return jcfg, tcfg, jllama.init_params(jax.random.PRNGKey(0), jcfg)
 
 
+def _moe():
+    """Llama with 4 experts, top-2, at the no-drop capacity factor
+    (n_experts / top_k, what hf_convert gives a Mixtral): the training
+    forward routes a whole sequence at once and a decode step one token
+    a lane, so only a capacity that drops nothing makes them one
+    function. The router is widened 50x so that no near-tie between
+    two experts flips between the frameworks."""
+    jcfg, tcfg, jp = _llama(n_experts=4, moe_capacity_factor=2.0)
+    jp["blocks"]["moe"]["router"] = jp["blocks"]["moe"]["router"] * 50.0
+    return jcfg, tcfg, jp
+
+
+def _glm():
+    """GLM tiny (q/k/v biases made random, half-dim rotary, GQA):
+    generate prefills the prompt bidirectionally in both packages."""
+    kw = dict(use_flash_attention=False)
+    jcfg, tcfg = jglm.tiny(**kw), tglm.tiny(**kw)
+    jp = jglm.init_params(jax.random.PRNGKey(0), jcfg)
+    rng = np.random.default_rng(0)
+    for n in ("bq", "bk", "bv"):
+        leaf = jp["blocks"][n]
+        jp["blocks"][n] = jnp.asarray(
+            rng.standard_normal(leaf.shape) * 0.1, leaf.dtype
+        )
+    return jcfg, tcfg, jp
+
+
 MODELS = {
     "gpt": _gpt,
     "llama_gqa": _llama,
     "mistral_window8": lambda: _llama(sliding_window=8, block_size=32),
+    "llama_moe": _moe,
+    "glm": _glm,
 }
 FORWARDS = {"gpt": tgpt.forward, "llama_gqa": tllama.forward,
-            "mistral_window8": tllama.forward}
+            "mistral_window8": tllama.forward, "llama_moe": tllama.forward,
+            "glm": tllama.forward}
 
 
 def _tokens(vocab, b, t, seed=1, low=0):

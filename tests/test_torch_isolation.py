@@ -116,8 +116,11 @@ def no_gpu():
 def test_entry_points_without_device_raise(no_gpu):
     from dlrover_tpu_torch.common.device import resolve_device
     from dlrover_tpu_torch.examples.llama_lora import train as lora_train
+    from dlrover_tpu_torch.examples.glm_infill import train as glm_train
     from dlrover_tpu_torch.examples.nanogpt import train
-    from dlrover_tpu_torch.models import convert, gpt, llama
+    from dlrover_tpu_torch.models import (
+        bert, convert, glm, gpt, hf_convert, llama, moe,
+    )
     from dlrover_tpu_torch.optim.adamw import AdamW
     from dlrover_tpu_torch.optim.low_bit import state_from_jax
     from dlrover_tpu_torch.serving import replica
@@ -141,6 +144,11 @@ def test_entry_points_without_device_raise(no_gpu):
         lambda: replica.build_tiny_model(0),
         lambda: replica.main(["--master", "127.0.0.1:1", "--replica_id",
                               "0"]),
+        lambda: llama.init_params(llama.LlamaConfig.moe_tiny()),
+        lambda: moe.init_moe_params(moe.MoEConfig(n_embd=8)),
+        lambda: bert.init_classifier_params(bert.tiny(), 2),
+        lambda: hf_convert.glm_params_from_hf({}, glm.tiny()),
+        lambda: glm_train.main(["--smoke", "--steps", "1"]),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

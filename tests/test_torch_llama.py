@@ -230,17 +230,10 @@ def test_param_tree_counts_and_presets_match_jax():
 
 
 def test_unported_options_raise():
+    """TPU tile tuning raises, and so does a window without a causal
+    mask. (Mixture-of-experts blocks are ported: tests/test_torch_moe.py.)"""
     _, tcfg = _configs()
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tllama.init_params(
-            dataclasses.replace(tcfg, n_experts=4), device="cpu"
-        )
     tp = tllama.init_params(tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tllama.forward(
-            tp, torch.zeros(1, 8, dtype=torch.long),
-            dataclasses.replace(tcfg, n_experts=4),
-        )
     with pytest.raises(NotImplementedError):
         tllama.forward(
             tp, torch.zeros(1, 8, dtype=torch.long),

@@ -6,7 +6,8 @@
 from one seed, carried over by ``models/convert.py``): staggered
 admission, preemption under a starved block budget and the
 disaggregated prefill -> decode pipeline give the JAX scheduler's greedy
-tokens exactly. The engine cases of the JAX serving tests are held to
+tokens exactly, and so does a Llama with experts (capacity 1.25, tokens
+dropped, a preemption). The engine cases of the JAX serving tests are held to
 the port's own ``generate.generate`` (itself held to JAX's in
 ``test_torch_generate.py``): a prefill spanning decode ticks, the padded
 final chunk at the cache's end, the prefill budget, EOS, drain, roles,
@@ -40,6 +41,7 @@ import torch
 from dlrover_tpu_torch.models import convert
 from dlrover_tpu_torch.models import generate as tgen
 from dlrover_tpu_torch.models import llama as tllama
+from dlrover_tpu_torch.models import moe as tmoe
 from dlrover_tpu_torch.serving import handoff as thandoff
 from dlrover_tpu_torch.serving import replica as treplica
 from dlrover_tpu_torch.serving.scheduler import (
@@ -132,6 +134,45 @@ def test_preemption_recomputes_the_jax_schedulers_tokens(model):
     assert sched.stats()["preempted_total"] >= 1
     for rid, c in got.items():
         assert c.tokens == want[rid].tokens, rid
+
+
+@pytest.fixture(scope="module")
+def moe_model():
+    """``LlamaConfig.moe_tiny()`` (4 experts, top-2, capacity factor
+    1.25), JAX init from seed 7, router widened 50x so that no logit
+    near-tie between two experts flips between the frameworks."""
+    jcfg = jllama.LlamaConfig.moe_tiny()
+    jp = jllama.init_params(jax.random.PRNGKey(7), jcfg)
+    jp["blocks"]["moe"]["router"] = jp["blocks"]["moe"]["router"] * 50.0
+    tp = convert.params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+    return jp, tp, tllama.LlamaConfig.moe_tiny(), jcfg
+
+
+def test_moe_scheduler_matches_the_jax_scheduler(moe_model, monkeypatch):
+    """Staggered admission (5 requests, 3 lanes), a preemption (a
+    starved block budget) and capacity 1.25, under which tokens are
+    dropped: every decode tick routes all 3 lanes' rows, idle lanes
+    included, and every prefill chunk its padding, as JAX does, so the
+    completions equal the JAX scheduler's."""
+    route, drops = tmoe._route, []
+
+    def spy(logits, top_k, capacity):
+        r, m = route(logits, top_k, capacity)
+        drops.append(float(m["dropped_fraction"]))
+        return r, m
+
+    monkeypatch.setattr(tmoe, "_route", spy)
+    want, got, sched = _both(
+        moe_model, 5, 5, max_new=8, lanes=3, block_size=4,
+        prefill_chunk=4, max_len=32, total_blocks=9,
+    )
+    stats = sched.stats()
+    assert stats["completed_total"] == 5
+    assert stats["preempted_total"] >= 1
+    assert max(drops) > 0
+    for rid, c in got.items():
+        assert c.tokens == want[rid].tokens, rid
+        assert c.finish_reason == "length"
 
 
 def test_prefill_spanning_decode_ticks_not_clobbered(model):
